@@ -1,7 +1,8 @@
-"""custom_op_benchmark_tpu — a TPU-native graph message-passing framework.
+"""custom_op_benchmark_tpu — a graph message-passing framework in JAX.
 
 Built from scratch under JAX/XLA/Pallas with the capabilities of the
-reference repo ``yzh119/custom_op_benchmark`` (see /root/repo/SURVEY.md):
+reference repo ``yzh119/custom_op_benchmark`` (see SURVEY.md); it runs on
+NVIDIA GPUs (and on the CPU for tests):
 
 - the differentiable sparse op family SDDMM / NodeMulEdge / edge-softmax /
   vector-SpMM (reference: graphop/graphop_kernel.cu, wrapper.py:8-55),
@@ -10,7 +11,7 @@ reference repo ``yzh119/custom_op_benchmark`` (see /root/repo/SURVEY.md):
 - a dual-CSR graph container with canonical edge ids
   (reference: wrapper.py:84-116) and edge-balanced partitioning
   (reference: part_csr.py);
-- Pallas TPU kernels on a block-sparse tiling for the hot path;
+- Pallas kernels (Triton route) on a block-sparse tiling;
 - GAT / GCN / GraphSAGE / graph-transformer model layers;
 - neighbor-sampling minibatch pipelines;
 - multi-chip edge-partitioned execution via ``shard_map`` over a

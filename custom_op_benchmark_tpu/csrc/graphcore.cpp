@@ -9,7 +9,8 @@
 // partitioning, and layered uniform neighbor sampling.
 //
 // Exposed as a plain C ABI consumed via ctypes (graph/native.py) — no
-// pybind11 dependency. All index arrays are int32 (TPU-native width);
+// pybind11 dependency. All index arrays are int32 (half the index
+// bandwidth of int64);
 // callers allocate outputs.
 //
 // Build: make -C custom_op_benchmark_tpu/csrc
@@ -180,9 +181,9 @@ int64_t graphcore_sample_in_edges(
 // NeighborSampler.sample, at C speed): layered fanout expansion over the
 // CSC, local renumbering (seeds first, then visited nodes ascending),
 // optional self loops, and the dense single-bucket in-neighbor matrix
-// (`in_cols`), in one call. The Python path pays ~35 ms/batch of numpy
-// set algebra + gathers at the Reddit shape; this does the same work in
-// a few ms and parallelizes the per-seed draws across `n_threads`
+// (`in_cols`), in one call. The Python path spends its time on numpy
+// set algebra + gathers; this does the same work several times faster
+// and parallelizes the per-seed draws across `n_threads`
 // (per-(hop,node) RNG streams keep the sampled edge SET thread-count
 // invariant; only edge order varies with n_threads).
 //
@@ -237,9 +238,8 @@ int64_t graphcore_sample_subgraph(
     auto draw_range = [&](int64_t lo_i, int64_t hi_i) {
       std::vector<int32_t> fset(std::max<int32_t>(f, 1));
       // Software-prefetching the CSC rows ahead was tried and measured
-      // NO faster at the Reddit shape (12.5 ms with vs without) — the
-      // hardware prefetcher already covers the sorted-frontier access
-      // pattern. Keep the loop simple.
+      // NO faster at the Reddit shape — the hardware prefetcher already
+      // covers the sorted-frontier access pattern. Keep the loop simple.
       for (int64_t i = lo_i; i < hi_i; ++i) {
         const int32_t v = frontier[i];
         const int64_t lo = indptr_c[v], hi = indptr_c[v + 1];

@@ -66,7 +66,7 @@ class NeighborSampler:
         # native sampler consumes. Holding int64 here made
         # sample_in_edges_native re-cast the FULL indices array (4 B ×
         # e elements, ~94 MB at the Reddit shape) on every hop of every
-        # batch: measured 129 of the 205 ms/step host-sampling cost.
+        # batch — most of the host-sampling cost.
         indptr = np.asarray(jax.device_get(g.indptr_c))[: g.n_nodes + 1]
         self._indptr = np.ascontiguousarray(indptr, np.int32)
         self._indices = np.ascontiguousarray(
@@ -81,8 +81,8 @@ class NeighborSampler:
         """For each seed, ≤fanout in-edges (u → seed). Returns (src, dst).
 
         Native C++ reservoir sampler when built (csrc/graphcore.cpp —
-        the Python fallback below is the per-step bottleneck: measured
-        ~1.1 s/step vs ~90 ms/step for Reddit-config batches).
+        the Python fallback below is the per-step bottleneck, about an
+        order of magnitude slower for Reddit-config batches).
         """
         from custom_op_benchmark_tpu.graph import native as _native
 
@@ -141,9 +141,8 @@ class NeighborSampler:
         # Native whole-batch path: layered Floyd/reservoir draws, local
         # renumbering, self loops, and in_cols in one C call
         # (csrc/graphcore.cpp graphcore_sample_subgraph) — the numpy
-        # path below costs ~35 ms/batch of set algebra + gathers at the
-        # Reddit shape; the native call does it in a few ms and threads
-        # across cores.
+        # path below spends its time on set algebra + gathers; the native
+        # call is several times faster and threads across cores.
         from custom_op_benchmark_tpu.graph import native as _native
 
         nat = _native.sample_subgraph_native(

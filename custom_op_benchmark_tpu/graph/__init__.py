@@ -1,7 +1,7 @@
 """Graph containers and host-side preprocessing (the framework's L6).
 
 Reference parity: dual-CSR + canonical edge ids (wrapper.py:84-116) and
-edge-balanced row chunking (part_csr.py:13-27), redesigned for TPU:
+edge-balanced row chunking (part_csr.py:13-27), redesigned for XLA:
 int32 indices, static padded shapes, conflict-free row-owned tiles.
 """
 

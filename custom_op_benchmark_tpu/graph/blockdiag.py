@@ -3,12 +3,11 @@
 The reference's benchmark workload is 512 disjoint 30-node cliques — a
 block-diagonal attention mask expressed as a graph (wrapper.py:79-101) —
 and its fastest GPU baseline is the dense ``bmm`` view of that structure
-(wrapper.py:185). On TPU this formulation is not a baseline, it is the
-*optimal execution strategy*: pack each connected component into one row
-block of a ``(B, L, ...)`` batch and every sparse op becomes a batched
-dense MXU op moving exactly the ideal number of bytes (no tile-slot
-padding, no index gathers). Measured on the reference workload: 0.92 of
-the HBM roofline for SpMM vs 0.71 for 128×128 block-sparse tiles.
+(wrapper.py:185). Here this formulation is not a baseline, it is the
+*execution strategy*: pack each connected component into one row block
+of a ``(B, L, ...)`` batch and every sparse op becomes a batched dense
+matmul moving exactly the ideal number of bytes (no tile-slot padding,
+no index gathers).
 
 The op layer picks this path when :func:`block_graph` succeeds (all
 components ≤ ``max_block`` nodes); general graphs fall back to the tiled
@@ -48,8 +47,7 @@ class BlockGraph:
     edge_slot: jax.Array
     # slot_edge: (B·L²,) int32 — canonical edge id per flat edge slot
     # (E_pad for empty slots). The inverse of edge_slot; makes the
-    # layout-conversion VJPs pure gathers (XLA scatter runs ~70× slower
-    # than gather on this hardware — docs/RESULTS.md).
+    # layout-conversion VJPs pure gathers instead of scatter-adds.
     slot_edge: jax.Array
     node_mask: jax.Array
     n_nodes: int = dataclasses.field(metadata=dict(static=True))
@@ -81,9 +79,8 @@ class BlockGraph:
 
 # ---------------------------------------------------------------------------
 # Layout conversions with gather-only VJPs. node_slot/edge_slot are
-# injective, so each scatter's transpose is exactly the inverse gather —
-# XLA's default transpose (scatter-add) measured 14.9 ms where these run
-# sub-ms on the reference workload.
+# injective, so each scatter's transpose is exactly the inverse gather,
+# where XLA's default transpose would be a scatter-add.
 # ---------------------------------------------------------------------------
 
 def _trail(x, k):

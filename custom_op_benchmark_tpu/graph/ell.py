@@ -3,7 +3,7 @@
 The third execution strategy (after dense blocks and BSR tiles), covering
 graphs with power-law degrees and no locality — the regime where the
 reference's `partition_csr` + atomics design pays most (part_csr.py,
-atomic.cuh). The TPU inversion:
+atomic.cuh). The inversion here:
 
 - rows are grouped into **degree buckets**; bucket ``b`` stores its rows'
   edges as a dense ``(rows_b, D_b)`` index matrix padded with a dummy
@@ -11,9 +11,10 @@ atomic.cuh). The TPU inversion:
   padding waste;
 - every row lives in exactly one packed row ⇒ node outputs are assembled
   with a pure **gather** through the precomputed inverse permutation
-  ``row_pos`` — measured on this TPU, XLA scatter runs at ~1.5 GB/s
-  while row gather runs at ~110 GB/s, so every scatter in the op family
-  is replaced by a gather through a host-precomputed inverse index;
+  ``row_pos`` — every scatter in the op family is replaced by a gather
+  through a host-precomputed inverse index (this layout was first tuned
+  on hardware where scatter ran two orders of magnitude slower than row
+  gather; whether that holds on the GPU is an open question);
 - canonical-edge-order results are likewise assembled by gathering
   through ``edge_pos`` (canonical eid → flattened slot position);
 - segment softmax is a *dense masked* softmax over the width axis;
@@ -40,15 +41,13 @@ from custom_op_benchmark_tpu.graph.graph import Graph
 # automatically to cover the max degree, so rows are never split.
 DEFAULT_WIDTHS = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
-# Training-profile ladder (round-3 measured, scripts/exp_ell_ladder.py,
-# 2M-edge power-law v5e): the finer ladder trims ELL padding 1.52/1.65 →
-# 1.16/1.43 (dst/src packing). Forward-only sweeps get SLOWER (14.5 →
-# 18.2 ms — per-bucket overhead + odd einsum widths), but gradient steps
-# get markedly FASTER (attention grad 68.7 → 60.8 ms, GAT grad 52.9 →
-# 44.3 ms): the backward is dominated by slot-row counts (wide gathers +
-# the row-bound twin hop), which pad trim cuts directly. Use via
-# ``ell_dual(g, profile="train")`` for training loops; the pow-2 default
-# stays best for inference-style forward-heavy use.
+# Training-profile ladder: the finer ladder trims ELL padding on a 2M-edge
+# power-law graph from 1.52/1.65 to 1.16/1.43 (dst/src packing; a count,
+# not a time). Forward-only sweeps pay more per-bucket overhead and odd
+# einsum widths, while gradient steps are dominated by slot-row counts
+# (wide gathers + the row-bound twin hop), which pad trim cuts directly.
+# Use via ``ell_dual(g, profile="train")`` for training loops; the pow-2
+# default is for inference-style forward-heavy use.
 TRAIN_WIDTHS = tuple(range(4, 65, 4)) + (96, 128, 192, 256, 384, 512,
                                          768, 1024)
 

@@ -6,7 +6,7 @@ each CSR position back to a *canonical edge id* so edge tensors live in one
 canonical order regardless of traversal direction
 (reference: wrapper.py:84-116).
 
-TPU-native redesign:
+Redesign for XLA:
 
 - The **canonical edge order is the row-sorted (CSR) order** — edges sorted
   by ``(src, dst)``. This makes ``eid_r`` the identity (it is never stored)
@@ -18,7 +18,7 @@ TPU-native redesign:
   reference: graphop_kernel.cu:355-409, 544-600) is available without any
   device-side sorting.
 - Indices are **int32** (the reference hard-codes int64 — graphop.cpp;
-  int32 halves index bandwidth and is what TPU gathers want).
+  int32 halves index bandwidth).
 - Shapes are **static**: the edge arrays may be padded to a tile-friendly
   length. Padded edges point at a *dummy node* ``n_nodes`` so that gathers
   clamp harmlessly and scatter contributions land in a dummy segment that is

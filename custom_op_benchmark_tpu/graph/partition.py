@@ -6,14 +6,14 @@ row into chunks of at most ``chunk_size`` edges, emitting a per-chunk owner
 row array — which the reference uses to keep one GPU thread block from
 owning an unbounded-degree row (and then needs atomics to heal, atomic.cuh).
 
-TPU redesign: the same chunking idea appears at two scales —
+Redesign: the same chunking idea appears at two scales —
 
-- **intra-chip**: fixed-size, tile-aligned edge blocks for Pallas grids.
+- **intra-device**: fixed-size, tile-aligned edge blocks.
   Because edges are canonical-sorted by row, a fixed-size block covers a
   contiguous run of rows; per-block partial sums are combined by a second
   (tiny) segment reduction instead of atomics. Metadata for that is
   :func:`edge_block_rows`.
-- **inter-chip**: :func:`edge_partition` splits the edge set into ``P``
+- **inter-device**: :func:`edge_partition` splits the edge set into ``P``
   contiguous, equally-padded shards (the ``shard_map`` data layout), with
   per-shard row ranges so cross-shard segment reductions touch only
   boundary rows.

@@ -2,14 +2,14 @@
 
 The reference heals GPU load imbalance *after the fact*: `partition_csr`
 splits rows into 32-edge chunks and atomics absorb the resulting write
-conflicts (part_csr.py:13-27, atomic.cuh). The TPU-native design moves the
-work to layout time instead: renumber nodes so that densely-connected node
-groups (connected components, communities, attention blocks) land inside
-single MXU tiles. On the reference's own benchmark workload — 512 disjoint
-30-node cliques (wrapper.py:79-101) — component-aligned numbering with
-tile 128 collapses the block-sparse tiling from ~344 straddling tiles at
-8% density to 128 diagonal tiles at 22% density, i.e. ~2.6× less HBM
-traffic for every tiled op, with zero change in op semantics.
+conflicts (part_csr.py:13-27, atomic.cuh). This design moves the work to
+layout time instead: renumber nodes so that densely-connected node groups
+(connected components, communities, attention blocks) land inside single
+tiles. On the reference's own benchmark workload — 512 disjoint 30-node
+cliques (wrapper.py:79-101) — component-aligned numbering with tile 128
+collapses the block-sparse tiling from ~344 straddling tiles at 8%
+density to 128 diagonal tiles at 22% density, i.e. ~2.6× fewer tile
+bytes for every tiled op, with zero change in op semantics.
 
 Everything here is numpy on host: reordering is done once per graph, like
 the reference's cached index preprocessing (wrapper.py:114-116).
@@ -130,10 +130,10 @@ def degree_balanced_order(g, num_parts: int) -> Reordering:
     (every shard pads to the max bucket — parallel/halo.py ``_pack_shared``),
     so the padded-compute waste at P shards is set by the WORST shard's
     degree profile. On locality-free power-law graphs (where
-    ``cluster_order`` finds nothing to exploit) the round-4 projection
-    measured waste 1.1→1.8 growing with P, and identified degree-bucket
-    imbalance as the whole scaling tax (docs/RESULTS.md round-4 projection
-    section). This is the fix at layout time, the same move the reference
+    ``cluster_order`` finds nothing to exploit) the plan's padded-slot
+    waste grows with P (1.1→1.8 from the host-side plan statistics), and
+    degree-bucket imbalance is the scaling tax. This is the fix at layout
+    time, the same move the reference
     makes one level down with 32-edge row chunks (part_csr.py:13-27):
     sort nodes by in-degree (out-degree tiebreak) and serpentine-deal them
     across shards — shard ``pos`` on even rounds, ``P-1-pos`` on odd — so
@@ -143,8 +143,7 @@ def degree_balanced_order(g, num_parts: int) -> Reordering:
 
     Trade-off: striping destroys locality, so only use where there is
     none to destroy (random power-law graphs) or after confirming the
-    halo volume is not the binding term (the round-4 projection measured
-    t_comm at 1–3 ms vs 15–76 ms compute at BASELINE scales).
+    halo volume is not the binding term.
     """
     import jax
 

@@ -1,15 +1,16 @@
-"""Block-sparse tiling: the TPU-native sparse format for the hot path.
+"""Block-sparse tiling: a sparse format for graphs with locality.
 
 The reference makes sparse ops fast on GPU with 32-edge row chunks plus
-scatter atomics (part_csr.py, atomic.cuh). The TPU equivalent inverts the
+scatter atomics (part_csr.py, atomic.cuh). This format inverts the
 design: partition the *node* axes into fixed tiles of ``(tile_r, tile_c)``
-(MXU-aligned, default 128×128) and keep only the adjacency tiles that
-contain at least one edge. Every op then becomes dense math over tiles:
+(default 128×128, tensor-core friendly) and keep only the adjacency tiles
+that contain at least one edge. Every op then becomes dense math over
+tiles:
 
-- SDDMM            → per tile:  ``A[I] @ B[J]^T``  (MXU), masked;
+- SDDMM            → per tile:  ``A[I] @ B[J]^T``, masked;
 - edge-softmax     → online softmax over each row-block's tile sequence;
 - vector-SpMM      → per tile:  ``S_tile @ X[J]`` accumulated into ``Y[I]``
-                     — conflict-free because one grid program owns row
+                     — conflict-free because one program owns row
                      block ``I`` outright (no atomics by construction).
 
 Gathers disappear entirely: a tile's operands are *contiguous slices* of
@@ -50,7 +51,7 @@ class TiledGraph:
                  slot (0,0,0) of a scratch tile T (see ``scatter_edges``).
 
     Static: n_nodes, n_edges, tile_r, tile_c, num_row_blocks,
-    num_col_blocks, num_tiles, max_tiles_per_row.
+    num_col_blocks, num_tiles.
     """
 
     tile_rows: jax.Array
@@ -75,8 +76,6 @@ class TiledGraph:
     num_row_blocks: int = dataclasses.field(metadata=dict(static=True))
     num_col_blocks: int = dataclasses.field(metadata=dict(static=True))
     num_tiles: int = dataclasses.field(metadata=dict(static=True))
-    max_tiles_per_row: int = dataclasses.field(metadata=dict(static=True))
-    max_tiles_per_col: int = dataclasses.field(metadata=dict(static=True))
 
     @property
     def n_rows_padded(self) -> int:
@@ -149,8 +148,6 @@ class TiledGraph:
             num_row_blocks=self.num_col_blocks,
             num_col_blocks=self.num_row_blocks,
             num_tiles=self.num_tiles,
-            max_tiles_per_row=self.max_tiles_per_col,
-            max_tiles_per_col=self.max_tiles_per_row,
         )
 
 
@@ -178,7 +175,6 @@ def tile_graph(g: Graph, tile_r: int = 128, tile_c: int = 128) -> TiledGraph:
     perm_c = np.lexsort((tile_rows, tile_cols)).astype(np.int32)
     tile_ptr_c = np.zeros(ncb + 1, dtype=np.int32)
     np.cumsum(np.bincount(tile_cols, minlength=ncb), out=tile_ptr_c[1:])
-    max_tpc = int(np.max(np.diff(tile_ptr_c))) if ncb else 0
 
     e_pad = g.num_edges_padded
     et = np.full(e_pad, t, dtype=np.int32)
@@ -187,8 +183,6 @@ def tile_graph(g: Graph, tile_r: int = 128, tile_c: int = 128) -> TiledGraph:
     et[: g.n_edges] = edge_tile
     err[: g.n_edges] = er
     ecc[: g.n_edges] = ec
-
-    max_tpr = int(np.max(np.diff(tile_ptr))) if nrb else 0
 
     return TiledGraph(
         tile_rows=jnp.asarray(tile_rows),
@@ -207,8 +201,6 @@ def tile_graph(g: Graph, tile_r: int = 128, tile_c: int = 128) -> TiledGraph:
         num_row_blocks=nrb,
         num_col_blocks=ncb,
         num_tiles=t,
-        max_tiles_per_row=max_tpr,
-        max_tiles_per_col=max_tpc,
     )
 
 

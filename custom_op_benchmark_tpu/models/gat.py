@@ -7,13 +7,21 @@ The attention layer is the composition the reference benchmarks piecewise
 
 from __future__ import annotations
 
+import dataclasses
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from custom_op_benchmark_tpu.graph.graph import Graph
-from custom_op_benchmark_tpu.ops import edge_softmax, vector_spmm
+from custom_op_benchmark_tpu.models.core import (
+    Module,
+    dense,
+    dropout,
+    remat_call,
+)
+from custom_op_benchmark_tpu.ops import vector_spmm
+
+_glorot = jax.nn.initializers.glorot_uniform()
 
 
 def aggregate_to_dst(g: Graph, edata: jax.Array, x: jax.Array) -> jax.Array:
@@ -30,7 +38,8 @@ def aggregate_to_dst(g: Graph, edata: jax.Array, x: jax.Array) -> jax.Array:
     return vector_spmm(g.reverse(), edata[g.csc_perm], x, impl="xla")
 
 
-class GATLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GATLayer(Module):
     """One multi-head GAT layer (additive attention, LeakyReLU scores).
 
     score[e,h] = LeakyReLU(a_l·Wx[src] + a_r·Wx[dst]);
@@ -46,52 +55,35 @@ class GATLayer(nn.Module):
     param_dtype: jnp.dtype = jnp.float32
     # Compute dtype (mixed precision): params stay param_dtype, the z
     # tensor — and therefore every gathered (R, D, d) tile in the fused
-    # ops — runs at this width. bf16 halves the backward's dominant
-    # gather traffic (measured: attn bwd 74 → 59.3 ms at 2M edges);
-    # accumulation stays f32 inside the ops (preferred_element_type).
+    # ops — runs at this width; accumulation stays f32 inside the ops
+    # (preferred_element_type).
     dtype: jnp.dtype = None
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True,
-                 ell=None, block=None):
+    def __call__(self, s, g: Graph, x: jax.Array, *,
+                 deterministic: bool = True, ell=None, block=None):
         h, d = self.num_heads, self.out_dim
-        w = nn.Dense(h * d, use_bias=False, name="W",
-                     param_dtype=self.param_dtype, dtype=self.dtype)
-
-        a_l = self.param("a_l", nn.initializers.glorot_uniform(), (h, d),
-                         self.param_dtype)
-        a_r = self.param("a_r", nn.initializers.glorot_uniform(), (h, d),
-                         self.param_dtype)
+        a_l = s.param("a_l", _glorot, (h, d), self.param_dtype)
+        a_r = s.param("a_r", _glorot, (h, d), self.param_dtype)
         if self.dtype is not None:
             a_l = a_l.astype(self.dtype)
             a_r = a_r.astype(self.dtype)
 
+        def proj(name, inp):
+            return dense(s.child(name), inp, h * d, use_bias=False,
+                         dtype=self.dtype, param_dtype=self.param_dtype)
+
+        lead = x.shape[:-1]
+        z = proj("W", x).reshape(lead + (h, d))
         if block is not None and (self.dropout_rate == 0.0
                                   or deterministic):
             # Dense-block fast path, whole-stack layout: x arrives in
             # (B, L, F) (GAT scatters once at the stack entry).
             from custom_op_benchmark_tpu.ops import block_gat_attention
 
-            bsz, ln = x.shape[0], x.shape[1]
-            z = w(x).reshape(bsz, ln, h, d)
             out = block_gat_attention(
                 block, a_l, a_r, z, negative_slope=self.negative_slope)
-            if self.residual:
-                res = x if x.shape[-1] == h * d else nn.Dense(
-                    h * d, use_bias=False, name="W_res",
-                    param_dtype=self.param_dtype, dtype=self.dtype)(x)
-                out = out + res.reshape(bsz, ln, h, d)
-            if self.concat_heads:
-                return out.reshape(bsz, ln, h * d)
-            return out.mean(axis=-2)
-
-        n = x.shape[0]
-        z = w(x).reshape(n, h, d)
-
-        use_fused = ell is not None and (
-            self.dropout_rate == 0.0 or deterministic
-        )
-        if use_fused:
+        elif ell is not None and (self.dropout_rate == 0.0
+                                  or deterministic):
             # Degree-bucketed fused path (ops/ell.py): score, softmax and
             # aggregation in one scatter-free sweep per bucket.
             from custom_op_benchmark_tpu.ops import ell_gat_attention
@@ -102,13 +94,14 @@ class GATLayer(nn.Module):
                 negative_slope=self.negative_slope,
             )
         else:
+            n = x.shape[0]
             el = jnp.einsum("nhd,hd->nh", z, a_l)
             er = jnp.einsum("nhd,hd->nh", z, a_r)
             # Additive scores per edge; padded edge endpoints clamp
             # (garbage masked below).
             nclamp = jnp.minimum(g.src, n - 1), jnp.minimum(g.dst, n - 1)
-            scores = el[nclamp[0]] + er[nclamp[1]]
-            scores = nn.leaky_relu(scores, self.negative_slope)
+            scores = jax.nn.leaky_relu(el[nclamp[0]] + er[nclamp[1]],
+                                       self.negative_slope)
 
             # Fused dst-softmax + aggregation stays in CSC order — saves
             # two cancelling full-edge permutation gathers per layer
@@ -117,31 +110,29 @@ class GATLayer(nn.Module):
 
             dropout_fn = None
             if self.dropout_rate > 0.0:
-                drop = nn.Dropout(self.dropout_rate)
-                dropout_fn = (
-                    lambda a: drop(a, deterministic=deterministic))
+                dropout_fn = (lambda a: dropout(
+                    s, a, self.dropout_rate, deterministic))
             out = softmax_aggregate_dst(
                 g, scores, z, dropout_fn=dropout_fn)   # (n, h, d)
 
         if self.residual:
-            res = x if x.shape[-1] == h * d else nn.Dense(
-                h * d, use_bias=False, name="W_res",
-                param_dtype=self.param_dtype, dtype=self.dtype)(x)
-            out = out + res.reshape(n, h, d)
+            res = x if x.shape[-1] == h * d else proj("W_res", x)
+            out = out + res.reshape(lead + (h, d))
         if self.concat_heads:
-            return out.reshape(n, h * d)
-        return out.mean(axis=1)
+            return out.reshape(lead + (h * d,))
+        return out.mean(axis=-2)
 
 
-class GAT(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GAT(Module):
     """A GAT stack for node classification (ELU between layers).
 
-    ``remat=True`` checkpoints each layer (``jax.checkpoint`` via
-    ``nn.remat``): the fused attention's gathered z tiles (GBs at ogbn
-    edge counts) are recomputed in the backward instead of living from
-    each layer's forward until its backward — trades one extra gather
-    pass per layer for O(layers·e·d) HBM. Use it when a full-graph
-    training step OOMs.
+    ``remat=True`` checkpoints each layer (``jax.checkpoint``): the fused
+    attention's gathered z tiles (GBs at ogbn edge counts) are recomputed
+    in the backward instead of living from each layer's forward until its
+    backward — trades one extra gather pass per layer for O(layers·e·d)
+    device memory. Use it when a full-graph training step runs out of
+    memory.
     """
 
     hidden_dim: int
@@ -155,9 +146,8 @@ class GAT(nn.Module):
     # f32 in-op accumulation; logits are returned in f32.
     dtype: jnp.dtype = None
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True,
-                 ell=None, block=None):
+    def __call__(self, s, g: Graph, x: jax.Array, *,
+                 deterministic: bool = True, ell=None, block=None):
         # Dense-block whole-stack layout (same pass as GraphTransformer):
         # scatter once, run every layer in (B, L, ·), gather once.
         block_layout = block is not None and (
@@ -165,30 +155,21 @@ class GAT(nn.Module):
         if block_layout:
             x = block.scatter_nodes(x)
         blk = block if block_layout else None
-        layer_cls = nn.remat(
-            GATLayer, static_argnums=(), prevent_cse=True
-        ) if self.remat else GATLayer
         for i in range(self.num_layers - 1):
-            x = layer_cls(
-                self.hidden_dim,
-                self.num_heads,
-                dropout_rate=self.dropout_rate,
-                residual=i > 0,
-                dtype=self.dtype,
-                name=f"layer{i}",
-            )(g, x, deterministic=deterministic, ell=ell, block=blk)
-            x = nn.elu(x)
-            if self.dropout_rate > 0.0:
-                x = nn.Dropout(self.dropout_rate)(
-                    x, deterministic=deterministic
-                )
-        out = GATLayer(
-            self.out_dim,
-            num_heads=1,
-            concat_heads=False,
-            dtype=self.dtype,
-            name=f"layer{self.num_layers - 1}",
-        )(g, x, deterministic=deterministic, ell=ell, block=blk)
+            layer = GATLayer(self.hidden_dim, self.num_heads,
+                             dropout_rate=self.dropout_rate,
+                             residual=i > 0, dtype=self.dtype)
+            x = remat_call(
+                s, f"layer{i}",
+                lambda c, x, layer=layer: layer(
+                    c, g, x, deterministic=deterministic, ell=ell,
+                    block=blk),
+                x, remat=self.remat)
+            x = dropout(s, jax.nn.elu(x), self.dropout_rate, deterministic)
+        last = GATLayer(self.out_dim, num_heads=1, concat_heads=False,
+                        dtype=self.dtype)
+        out = last(s.child(f"layer{self.num_layers - 1}"), g, x,
+                   deterministic=deterministic, ell=ell, block=blk)
         if block_layout:
             out = block.gather_nodes(out)
         return out.astype(jnp.float32) if self.dtype is not None else out

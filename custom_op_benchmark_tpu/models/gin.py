@@ -7,21 +7,23 @@ specializes). Supports the ELL fast path via ell_copy_spmm.
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 
 from custom_op_benchmark_tpu.graph.graph import Graph
+from custom_op_benchmark_tpu.models.core import Module, dense
 from custom_op_benchmark_tpu.ops import gspmm
 
 
-class GINLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GINLayer(Module):
     """h'_v = MLP((1 + eps)·h_v + Σ_{u→v} h_u)."""
 
     out_dim: int
     hidden_dim: int = 0
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, ell=None, block=None):
+    def __call__(self, s, g: Graph, x: jax.Array, *, ell=None, block=None):
         if block is not None:
             # Dense-block fast path (whole-stack (B, L, F) layout).
             from custom_op_benchmark_tpu.ops import block_copy_spmm
@@ -35,27 +37,27 @@ class GINLayer(nn.Module):
         else:
             neigh = gspmm(g, "copy_lhs", "sum", lhs=x, lhs_target="u",
                           to="dst")
-        eps = self.param("eps", nn.initializers.zeros, ())
+        eps = s.param("eps", jax.nn.initializers.zeros, ())
         h = (1.0 + eps) * x + neigh
-        hidden = self.hidden_dim or self.out_dim
-        h = nn.Dense(hidden, name="mlp1")(h)
-        h = nn.relu(h)
-        return nn.Dense(self.out_dim, name="mlp2")(h)
+        h = jax.nn.relu(dense(s.child("mlp1"), h,
+                              self.hidden_dim or self.out_dim))
+        return dense(s.child("mlp2"), h, self.out_dim)
 
 
-class GIN(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GIN(Module):
     hidden_dim: int
     out_dim: int
     num_layers: int = 2
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True,
-                 ell=None, block=None):
+    def __call__(self, s, g: Graph, x: jax.Array, *,
+                 deterministic: bool = True, ell=None, block=None):
         if block is not None:   # whole-stack (B, L, ·) layout
             x = block.scatter_nodes(x)
         for i in range(self.num_layers - 1):
-            x = nn.relu(GINLayer(self.hidden_dim, name=f"layer{i}")(
-                g, x, ell=ell, block=block))
-        x = GINLayer(self.out_dim, name=f"layer{self.num_layers - 1}")(
-            g, x, ell=ell, block=block)
+            x = jax.nn.relu(GINLayer(self.hidden_dim)(
+                s.child(f"layer{i}"), g, x, ell=ell, block=block))
+        x = GINLayer(self.out_dim)(
+            s.child(f"layer{self.num_layers - 1}"), g, x, ell=ell,
+            block=block)
         return block.gather_nodes(x) if block is not None else x

@@ -6,20 +6,22 @@ GraphSAGE 25/10 config of BASELINE.md).
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 
 from custom_op_benchmark_tpu.graph.graph import Graph
+from custom_op_benchmark_tpu.models.core import Module, dense, dropout
 from custom_op_benchmark_tpu.ops import gspmm
 
 
-class SAGELayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SAGELayer(Module):
     """h'_v = W_self·h_v + W_neigh·mean_{u→v} h_u."""
 
     out_dim: int
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, ell=None,
+    def __call__(self, s, g: Graph, x: jax.Array, *, ell=None,
                  in_cols=None, block=None):
         if block is not None:
             # Dense-block fast path (whole-stack (B, L, F) layout).
@@ -42,31 +44,29 @@ class SAGELayer(nn.Module):
         else:
             neigh = gspmm(g, "copy_lhs", "mean", lhs=x, lhs_target="u",
                           to="dst")
-        return (
-            nn.Dense(self.out_dim, name="W_self")(x)
-            + nn.Dense(self.out_dim, use_bias=False, name="W_neigh")(neigh)
-        )
+        return (dense(s.child("W_self"), x, self.out_dim)
+                + dense(s.child("W_neigh"), neigh, self.out_dim,
+                        use_bias=False))
 
 
-class GraphSAGE(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GraphSAGE(Module):
     hidden_dim: int
     out_dim: int
     num_layers: int = 2
     dropout_rate: float = 0.0
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array, *, deterministic: bool = True,
-                 ell=None, in_cols=None, block=None):
+    def __call__(self, s, g: Graph, x: jax.Array, *,
+                 deterministic: bool = True, ell=None, in_cols=None,
+                 block=None):
         if block is not None:   # whole-stack (B, L, ·) layout
             x = block.scatter_nodes(x)
         for i in range(self.num_layers - 1):
-            x = nn.relu(SAGELayer(self.hidden_dim, name=f"layer{i}")(
-                g, x, ell=ell, in_cols=in_cols, block=block))
-            if self.dropout_rate > 0.0:
-                x = nn.Dropout(self.dropout_rate)(
-                    x, deterministic=deterministic
-                )
-        x = SAGELayer(self.out_dim, name=f"layer{self.num_layers - 1}")(
-            g, x, ell=ell, in_cols=in_cols, block=block
-        )
+            x = jax.nn.relu(SAGELayer(self.hidden_dim)(
+                s.child(f"layer{i}"), g, x, ell=ell, in_cols=in_cols,
+                block=block))
+            x = dropout(s, x, self.dropout_rate, deterministic)
+        x = SAGELayer(self.out_dim)(
+            s.child(f"layer{self.num_layers - 1}"), g, x, ell=ell,
+            in_cols=in_cols, block=block)
         return block.gather_nodes(x) if block is not None else x

@@ -10,22 +10,25 @@ reference built it for (graphop_kernel.cu:17 comment).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from custom_op_benchmark_tpu.graph.graph import Graph
-from custom_op_benchmark_tpu.models.gat import aggregate_to_dst
-from custom_op_benchmark_tpu.ops import (
-    edge_softmax,
-    node_mul_edge,
-    sddmm,
+from custom_op_benchmark_tpu.models.core import (
+    Module,
+    dense,
+    dropout,
+    layer_norm,
+    remat_call,
 )
+from custom_op_benchmark_tpu.ops import node_mul_edge, sddmm
 
 
-class GraphMultiHeadAttention(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GraphMultiHeadAttention(Module):
     """Multi-head dot-product attention over graph edges.
 
     scores[e,h] = <Q[src], K[dst]>/√d (+ <Q[src], E[e]> if edge features),
@@ -33,52 +36,45 @@ class GraphMultiHeadAttention(nn.Module):
     out[v] = Σ_{e=(u,v)} α[e]·V[u].
 
     When a ``TiledGraph`` is supplied (and no edge features are used),
-    the whole score→softmax→aggregate pipeline runs as ONE fused Pallas
-    kernel (ops/pallas/attention.py) with no edge-sized HBM traffic.
+    the whole score→softmax→aggregate pipeline runs as the fused tiled
+    attention (ops/tiled.py) with no edge-sized device-memory traffic.
     """
 
     num_heads: int
     head_dim: int
     dtype: jnp.dtype = None   # compute dtype (mixed precision)
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array,
+    def __call__(self, s, g: Graph, x: jax.Array,
                  edge_feat: Optional[jax.Array] = None, *, tiled=None,
                  block=None, ell=None, block_layout: bool = False):
         h, d = self.num_heads, self.head_dim
-        dt = self.dtype
+        lead = x.shape[:-1]
+
+        def proj(name):
+            return dense(s.child(name), x, h * d, use_bias=False,
+                         dtype=self.dtype).reshape(lead + (h, d))
+
+        def out_proj(out):
+            return dense(s.child("Wo"), out.reshape(lead + (h * d,)),
+                         x.shape[-1], dtype=self.dtype)
+
+        q, k, v = proj("Wq"), proj("Wk"), proj("Wv")
         if block_layout:
             # Model-level layout pass: x arrives ALREADY in the (B, L, D)
             # block layout (GraphTransformer scatters once at the stack
             # entry), so the per-layer scatter/gather boundary
             # conversions vanish. Dense works on the last dim either way.
             assert block is not None and edge_feat is None
-            bsz, ln = x.shape[0], x.shape[1]
-            q = nn.Dense(h * d, use_bias=False, name="Wq",
-                         dtype=dt)(x).reshape(bsz, ln, h, d)
-            k = nn.Dense(h * d, use_bias=False, name="Wk",
-                         dtype=dt)(x).reshape(bsz, ln, h, d)
-            v = nn.Dense(h * d, use_bias=False, name="Wv",
-                         dtype=dt)(x).reshape(bsz, ln, h, d)
             from custom_op_benchmark_tpu.ops import block_attention
 
-            out = block_attention(block, q, k, v, normalize="dst")
-            return nn.Dense(x.shape[-1], name="Wo", dtype=dt)(
-                out.reshape(bsz, ln, h * d))
-        n = x.shape[0]
-        q = nn.Dense(h * d, use_bias=False, name="Wq",
-                     dtype=dt)(x).reshape(n, h, d)
-        k = nn.Dense(h * d, use_bias=False, name="Wk",
-                     dtype=dt)(x).reshape(n, h, d)
-        v = nn.Dense(h * d, use_bias=False, name="Wv",
-                     dtype=dt)(x).reshape(n, h, d)
+            return out_proj(block_attention(block, q, k, v,
+                                            normalize="dst"))
 
         if ell is not None:
             # Degree-bucketed fused attention (general graphs): pass the
             # (src, dst) dual from ops.ell_dual; normalization over
             # in-edges of dst ⇒ run over the dst packing. Edge features
-            # take the fused edge-bias kernel (round-1 ran this path on
-            # composed segment ops only).
+            # take the fused edge-bias kernel.
             from custom_op_benchmark_tpu.ops import ell_attention
             from custom_op_benchmark_tpu.ops.ell import (
                 ell_edge_bias_attention,
@@ -86,13 +82,9 @@ class GraphMultiHeadAttention(nn.Module):
 
             src_ell, dst_ell = ell
             if edge_feat is None:
-                out = ell_attention(dst_ell, src_ell, q, k, v)
-            else:
-                out = ell_edge_bias_attention(
-                    dst_ell, src_ell, q, k, v, edge_feat
-                )
-            return nn.Dense(x.shape[-1], name="Wo", dtype=dt)(
-                out.reshape(n, h * d))
+                return out_proj(ell_attention(dst_ell, src_ell, q, k, v))
+            return out_proj(ell_edge_bias_attention(
+                dst_ell, src_ell, q, k, v, edge_feat))
 
         if block is not None and edge_feat is None:
             # Component-batched dense attention (ops/dense_block.py);
@@ -106,16 +98,13 @@ class GraphMultiHeadAttention(nn.Module):
                 block.scatter_nodes(v),
                 normalize="dst",
             )
-            out = block.gather_nodes(out)
-            return nn.Dense(x.shape[-1], name="Wo", dtype=dt)(
-                out.reshape(n, h * d))
+            return out_proj(block.gather_nodes(out))
 
         if tiled is not None and edge_feat is None:
             from custom_op_benchmark_tpu.ops.tiled import tiled_attention
 
-            out = tiled_attention(tiled, q, k, v, normalize="dst")
-            return nn.Dense(x.shape[-1], name="Wo", dtype=dt)(
-                out.reshape(n, h * d))
+            return out_proj(tiled_attention(tiled, q, k, v,
+                                            normalize="dst"))
 
         # Attention over in-edges of dst: score = <Q[dst], K[src]>.
         scores = sddmm(g, k, q)  # <K[src], Q[dst]> per edge
@@ -126,50 +115,44 @@ class GraphMultiHeadAttention(nn.Module):
 
         from custom_op_benchmark_tpu.ops import softmax_aggregate_dst
 
-        out = softmax_aggregate_dst(g, scores, v)  # (n, h, d), CSC-fused
-        return nn.Dense(x.shape[-1], name="Wo", dtype=dt)(
-                out.reshape(n, h * d))
+        return out_proj(softmax_aggregate_dst(g, scores, v))  # CSC-fused
 
 
-class GraphTransformerLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GraphTransformerLayer(Module):
     num_heads: int
     head_dim: int
     mlp_dim: int
     dropout_rate: float = 0.0
     dtype: jnp.dtype = None   # compute dtype (mixed precision)
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array,
+    def __call__(self, s, g: Graph, x: jax.Array,
                  edge_feat: Optional[jax.Array] = None, *,
                  deterministic: bool = True, tiled=None, block=None,
                  ell=None, block_layout: bool = False):
         dt = self.dtype
-        y = nn.LayerNorm(name="ln1", dtype=dt)(x)
-        y = GraphMultiHeadAttention(
-            self.num_heads, self.head_dim, dtype=dt, name="attn"
-        )(g, y, edge_feat, tiled=tiled, block=block, ell=ell,
-          block_layout=block_layout)
-        if self.dropout_rate > 0.0:
-            y = nn.Dropout(self.dropout_rate)(y, deterministic=deterministic)
-        x = x + y
-        y = nn.LayerNorm(name="ln2", dtype=dt)(x)
-        y = nn.Dense(self.mlp_dim, name="mlp1", dtype=dt)(y)
-        y = nn.gelu(y)
-        y = nn.Dense(x.shape[-1], name="mlp2", dtype=dt)(y)
-        if self.dropout_rate > 0.0:
-            y = nn.Dropout(self.dropout_rate)(y, deterministic=deterministic)
-        return x + y
+        y = layer_norm(s.child("ln1"), x, dtype=dt)
+        y = GraphMultiHeadAttention(self.num_heads, self.head_dim,
+                                    dtype=dt)(
+            s.child("attn"), g, y, edge_feat, tiled=tiled, block=block,
+            ell=ell, block_layout=block_layout)
+        x = x + dropout(s, y, self.dropout_rate, deterministic)
+        y = layer_norm(s.child("ln2"), x, dtype=dt)
+        y = jax.nn.gelu(dense(s.child("mlp1"), y, self.mlp_dim, dtype=dt))
+        y = dense(s.child("mlp2"), y, x.shape[-1], dtype=dt)
+        return x + dropout(s, y, self.dropout_rate, deterministic)
 
 
-class GraphTransformer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GraphTransformer(Module):
     """A stack of masked-attention transformer layers over a graph.
 
-    ``remat=True`` checkpoints each layer (``jax.checkpoint`` via
-    ``nn.remat``, same contract as :class:`..models.gat.GAT`): the fused
-    attention's gathered k/v/q tiles — and with edge features the
-    (R, D, d) bias tiles — are recomputed in the backward instead of
-    living from each layer's forward until its backward. Required for
-    full-graph edge-bias training at ogbn-arxiv edge counts and above.
+    ``remat=True`` checkpoints each layer (``jax.checkpoint``, same
+    contract as :class:`..models.gat.GAT`): the fused attention's
+    gathered k/v/q tiles — and with edge features the (R, D, d) bias
+    tiles — are recomputed in the backward instead of living from each
+    layer's forward until its backward. Required for full-graph
+    edge-bias training at ogbn-arxiv edge counts and above.
     """
 
     dim: int
@@ -187,14 +170,13 @@ class GraphTransformer(nn.Module):
     # A/B measurement; the whole-stack layout is numerically equivalent.
     block_whole_stack: bool = True
 
-    @nn.compact
-    def __call__(self, g: Graph, x: jax.Array,
+    def __call__(self, s, g: Graph, x: jax.Array,
                  edge_feat: Optional[jax.Array] = None, *,
                  deterministic: bool = True, tiled=None, block=None,
                  ell=None):
         # Model-level layout pass (dense_block): scatter ONCE to the
         # (B, L, D) component-batched layout, run every layer there
-        # (Dense/LayerNorm/attention all operate per slot; padded slots
+        # (dense/LayerNorm/attention all operate per slot; padded slots
         # carry garbage that the adjacency mask and the final gather
         # discard), gather ONCE at the stack exit — removing the two
         # boundary permutations every layer otherwise pays.
@@ -203,26 +185,23 @@ class GraphTransformer(nn.Module):
         if block_layout:
             x = block.scatter_nodes(x)
         if x.shape[-1] != self.dim:
-            x = nn.Dense(self.dim, name="proj_in", dtype=self.dtype)(x)
-        head_dim = self.dim // self.num_heads
-        layer_cls = nn.remat(
-            GraphTransformerLayer, static_argnums=(), prevent_cse=True
-        ) if self.remat else GraphTransformerLayer
+            x = dense(s.child("proj_in"), x, self.dim, dtype=self.dtype)
+        layer = GraphTransformerLayer(
+            self.num_heads, self.dim // self.num_heads,
+            self.mlp_dim or 4 * self.dim, self.dropout_rate,
+            dtype=self.dtype)
         for i in range(self.num_layers):
-            x = layer_cls(
-                self.num_heads,
-                head_dim,
-                self.mlp_dim or 4 * self.dim,
-                self.dropout_rate,
-                dtype=self.dtype,
-                name=f"layer{i}",
-            )(g, x, edge_feat, deterministic=deterministic,
-              tiled=tiled, block=block, ell=ell,
-              block_layout=block_layout)
+            x = remat_call(
+                s, f"layer{i}",
+                lambda c, x: layer(
+                    c, g, x, edge_feat, deterministic=deterministic,
+                    tiled=tiled, block=block, ell=ell,
+                    block_layout=block_layout),
+                x, remat=self.remat)
         if block_layout:
             x = block.gather_nodes(x)
-        x = nn.LayerNorm(name="ln_out", dtype=self.dtype)(x)
+        x = layer_norm(s.child("ln_out"), x, dtype=self.dtype)
         if self.out_dim is not None:
-            x = nn.Dense(self.out_dim, name="proj_out",
-                         dtype=self.dtype)(x)
+            x = dense(s.child("proj_out"), x, self.out_dim,
+                      dtype=self.dtype)
         return x.astype(jnp.float32) if self.dtype is not None else x

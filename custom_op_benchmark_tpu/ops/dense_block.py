@@ -2,10 +2,10 @@
 
 Same semantic contracts as ops/primitives.py (SURVEY.md §2.3, reference
 wrapper.py:8-55), specialized to graphs whose components fit in dense
-``(B, L, L)`` blocks. Everything is plain XLA batched-MXU math — masked
+``(B, L, L)`` blocks. Everything is plain XLA batched matmul math — masked
 bmm / softmax — so gradients come from ``jax.grad`` directly and every op
-moves exactly its ideal HBM bytes (the reference's dense-bmm baseline,
-wrapper.py:185, promoted to the primary execution strategy on TPU).
+moves exactly its ideal device-memory bytes (the reference's dense-bmm
+baseline, wrapper.py:185, promoted to an execution strategy).
 
 Inputs live block-dense: node tensors ``(B, L, ...)`` via
 ``bg.scatter_nodes``, edge tensors ``(B, L, L, ...)`` via
@@ -112,7 +112,7 @@ def block_gat_attention(bg: BlockGraph, a_l: jax.Array, a_r: jax.Array,
     over in-edges of dst v, out[b,v,h] = Σ_u α·z[b,u,h] — the additive-
     attention decomposition the reference models with NodeMulEdge +
     sparse_softmax + vector_spmm (wrapper.py:32-55). a_l/a_r (h, d);
-    z (B, L, h, d). Plain masked batched-MXU math — grads via jax.grad.
+    z (B, L, h, d). Plain masked batched matmuls — grads via jax.grad.
     """
     f32 = jnp.float32
     el = jnp.einsum("blhd,hd->blh", z, a_l, preferred_element_type=f32)

@@ -5,10 +5,10 @@ Round-1 verdict: ``impl="pallas"`` silently ran the XLA segment path and
 ``impl`` parameter real:
 
 - ``"xla"``          — segment-op oracle (any graph, any tracing context);
-- ``"pallas"``       — alias for ``"tiled"``: the Pallas block-sparse
-                       kernels (ops/pallas/tiled_kernels.py) on the
-                       tile-aligned node order;
-- ``"dense_block"``  — component-batched dense MXU path;
+- ``"tiled"``        — block-sparse tiles on the tile-aligned node
+                       order (Pallas kernels, ops/tiled.py); ``"pallas"``
+                       is an alias. Never chosen by ``"auto"``;
+- ``"dense_block"``  — component-batched dense matmul path;
 - ``"ell"``          — degree-bucketed scatter-free path;
 - ``"auto"``         — consult :func:`utils.summary.describe` and pick the
                        strategy ladder's recommendation (graphs smaller
@@ -18,8 +18,9 @@ Round-1 verdict: ``impl="pallas"`` silently ran the XLA segment path and
 
 Reference parity: the reference wrapper routes *every* op call to its
 custom kernel (wrapper.py:20-30 → graphop_kernel.cu); here the same public
-call reaches the TPU-native kernel family, with the view build playing the
-role of the reference's cached index preprocessing (wrapper.py:114-116).
+call reaches the layout-specific op family, with the view build playing
+the role of the reference's cached index preprocessing
+(wrapper.py:114-116).
 
 Views are built host-side once per :class:`Graph` instance and cached by
 object identity (evicted when the graph is garbage-collected). The public
@@ -132,8 +133,6 @@ def resolve(g, impl: str) -> str:
     rec = _summary(g).recommended
     if rec == "dense_block" and get_block(g) is not None:
         return "dense_block"
-    if rec.startswith("tiled"):
-        return "tiled"
     if rec == "ell":
         return "ell"
     return "xla"
@@ -319,7 +318,7 @@ def node_mul_edge(strategy: str, g, A, Be):
     if strategy == "tiled":
         # Formal re-spec (round-3 verdict #8): node_mul_edge has no BSR
         # kernel — tile-dense edge features would need (T, R, C, d)
-        # storage, a d× blowup over the ELL packing for zero MXU gain
+        # storage, a d× blowup over the ELL packing for zero matmul gain
         # (the op is one dot per edge, not a tile contraction). Every
         # tiled-family impl ("pallas"/"tiled"/auto-on-tiled-graphs)
         # therefore routes to the ELL fast path; the substitution is

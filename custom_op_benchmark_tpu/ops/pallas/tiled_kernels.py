@@ -1,208 +1,127 @@
-"""Core Pallas kernels on the block-sparse (BSR) tiling.
+"""Pallas kernels (Triton route) on the block-sparse (BSR) tiling.
 
-Three kernels cover the whole op family's forward and backward passes
-(SURVEY.md §2.3 VJP contracts):
+With the fused attention (pallas/attention.py) these carry the op
+family's forward and backward passes (SURVEY.md §2.3 VJP contracts); the
+transpose sweep is plain XLA (ops/tiled.py ``_col_sweep``). Tiles are
+``R × C`` adjacency blocks; node arrays are padded to whole blocks and
+features to ``feat_block`` multiples. Each program finds its tiles through the index arrays it is
+given (whole-array refs, no scalar prefetch) and loops over them with
+``fori_loop``; accumulators are loop carries, so one program owns each
+output block and no atomics are needed.
 
-- :func:`sddmm_tiles_kernel` — per nonzero tile (I, J):
+- :func:`sddmm_tiles_kernel` — grid ``(T, R/BR)``:
   ``S[t] = mask[t] ⊙ (A[I·R:(I+1)·R] @ B[J·C:(J+1)·C]ᵀ)``. Forward of
   SDDMM; also dvals of SpMM (with A=dy, B=x).
   (reference: maskedmm_csr_forward_kernel, graphop_kernel.cu:41-55 —
-  there per-edge serial dot products; here one 128×d×128 MXU matmul per
-  tile.)
+  there per-edge serial dot products; here one R×d×C product per tile.)
 
-- :func:`spmm_row_sweep_kernel` — per row block I, sweeping its tiles:
-  ``Y[I] = Σ_t S[t] @ X[J(t)]``. Forward of vector-SpMM; also dA of SDDMM.
-  Row-owned accumulation replaces the reference's AtomicAdd scatters
-  (graphop_kernel.cu:119-130 + atomic.cuh).
+- :func:`spmm_row_sweep_kernel` — grid ``(row blocks, R/BR, d/BD)``,
+  each program sweeping its row block's tiles:
+  ``Y[I] = Σ_t S[t] @ X[J(t)]``. Forward of vector-SpMM; also dA of
+  SDDMM. Row-owned accumulation replaces the reference's AtomicAdd
+  scatters (graphop_kernel.cu:119-130 + atomic.cuh).
 
-- :func:`spmm_col_sweep_kernel` — per col block J, sweeping the
-  column-sorted tile view: ``X'[J] = Σ_t S[t]ᵀ @ Y[I(t)]``. The
-  transpose-graph backward (dB of SDDMM, dx of SpMM; reference launches
-  its forward kernels over the column CSR instead —
-  graphop_kernel.cu:355-409, 544-600).
-
-Layout invariants: tiles are (tile_r × tile_c) = MXU-aligned; node arrays
-padded to whole blocks; grid dim 1 (the tile sweep) is innermost so output
-blocks stay resident in VMEM across a sweep (zero HBM traffic for
-accumulators); duplicate clamped index_map entries make padding iterations
-free (no re-fetch, compute skipped under ``pl.when``).
+An empty block sweeps no tiles and writes zeros.
 """
 
 from __future__ import annotations
 
+import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from custom_op_benchmark_tpu.ops.pallas.common import triton_call
+
+# Rows of a tile one program handles: 64-row operands keep the
+# accumulator in registers and two pipeline stages of operand tiles
+# inside a block's shared memory at f32.
+SUB_BLOCK = 64
+_F32 = jnp.float32
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def feat_block(d: int) -> int:
+    """Feature chunk a program works on: a power of two, at least 16 (the
+    tensor cores' smallest operand side), at most 128."""
+    return min(128, max(16, pl.next_power_of_2(d)))
+
+
+def _dot(a, b, contract=((1,), (0,))):
+    return jax.lax.dot_general(a, b, (contract, ((), ())),
+                               preferred_element_type=_F32)
+
+
+def _slot(i, size):
+    return pl.ds(pl.multiple_of(i * size, size), size)
 
 
 # ---------------------------------------------------------------------------
-# SDDMM over tiles: grid = (T,)
+# SDDMM over tiles
 # ---------------------------------------------------------------------------
 
-def _sddmm_body(rows_ref, cols_ref, a_ref, b_ref, mask_ref, out_ref):
-    s = jax.lax.dot_general(
-        a_ref[...],
-        b_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),   # A @ B^T
-        preferred_element_type=jnp.float32,
-    )
-    out_ref[0] = jnp.where(mask_ref[0], s, 0.0).astype(out_ref.dtype)
+def _sddmm_body(rows_ref, cols_ref, mask_ref, a_ref, b_ref, out_ref, *,
+                r, c, br, bd, nd):
+    t, rs = pl.program_id(0), pl.program_id(1)
+    arow = rows_ref[t] * (r // br) + rs
+    bcol = cols_ref[t]
+
+    def chunk(kk, s):
+        a = a_ref[_slot(arow, br), _slot(kk, bd)]
+        b = b_ref[_slot(bcol, c), _slot(kk, bd)]
+        return s + _dot(a, b, ((1,), (1,)))            # A @ Bᵀ
+
+    s = jax.lax.fori_loop(0, nd, chunk, jnp.zeros((br, c), _F32))
+    sub = _slot(rs, br)
+    out_ref[t, sub, :] = jnp.where(mask_ref[t, sub, :], s,
+                                   0.0).astype(out_ref.dtype)
 
 
 def sddmm_tiles_kernel(tile_rows, tile_cols, mask, A, B):
     """A: (NRB·R, d), B: (NCB·C, d) → scores (T, R, C), masked.
 
-    d must be a multiple of 128 (callers pad).
-    """
+    d must be a multiple of ``feat_block(d)`` (callers pad)."""
     t, r, c = mask.shape
     d = A.shape[1]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(t,),
-        in_specs=[
-            pl.BlockSpec((r, d), lambda i, rows, cols: (rows[i], 0)),
-            pl.BlockSpec((c, d), lambda i, rows, cols: (cols[i], 0)),
-            pl.BlockSpec((1, r, c), lambda i, rows, cols: (i, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, r, c), lambda i, rows, cols: (i, 0, 0)),
-    )
-    return pl.pallas_call(
-        _sddmm_body,
-        grid_spec=grid_spec,
+    br, bd = min(SUB_BLOCK, r), feat_block(d)
+    body = functools.partial(_sddmm_body, r=r, c=c, br=br, bd=bd,
+                             nd=d // bd)
+    return triton_call(
+        body, grid=(t, r // br),
         out_shape=jax.ShapeDtypeStruct((t, r, c), A.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * t * r * c * d,
-            bytes_accessed=(t * (r + c) * d + t * r * c) * 4,
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(tile_rows, tile_cols, A, B, mask)
+        name="tiled_sddmm",
+    )(tile_rows, tile_cols, mask, A, B)
 
 
 # ---------------------------------------------------------------------------
-# SpMM row sweep: grid = (NRB, MAX_TPR), t innermost
+# SpMM row sweep
 # ---------------------------------------------------------------------------
 
-def _row_sweep_body(ptr_ref, cols_ref, vals_ref, x_ref, out_ref):
-    i = pl.program_id(0)
-    t = pl.program_id(1)
-    n_t = ptr_ref[i + 1] - ptr_ref[i]
+def _row_sweep_body(ptr_ref, cols_ref, vals_ref, x_ref, out_ref, *,
+                    r, c, br, bd):
+    i, rs, dc = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    sub, feats = _slot(rs, br), _slot(dc, bd)
 
-    @pl.when(t == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
+    def tile(t, acc):
+        v = vals_ref[t, sub, :]                          # (br, c)
+        x = x_ref[_slot(cols_ref[t], c), feats]          # (c, bd)
+        return acc + _dot(v, x)
 
-    @pl.when(t < n_t)
-    def _():
-        out_ref[...] += jnp.dot(
-            vals_ref[0], x_ref[...], preferred_element_type=jnp.float32
-        ).astype(out_ref.dtype)
-
-
-def _clamped_tile(i, t, ptr, tmax):
-    # Clamp into the row block's own range so padded sweep iterations
-    # re-address the previous tile (no re-fetch) and stay in bounds even
-    # for empty row blocks.
-    lo = ptr[i]
-    hi = jnp.maximum(ptr[i + 1] - 1, lo)
-    return jnp.clip(lo + t, 0, jnp.minimum(hi, tmax - 1))
+    acc = jax.lax.fori_loop(ptr_ref[i], ptr_ref[i + 1], tile,
+                            jnp.zeros((br, bd), _F32))
+    out_ref[_slot(i * (r // br) + rs, br), feats] = acc.astype(
+        out_ref.dtype)
 
 
-def spmm_row_sweep_kernel(tile_ptr, tile_cols, vals, x, max_tiles: int):
+def spmm_row_sweep_kernel(tile_ptr, tile_cols, vals, x):
     """vals: (T, R, C) tile-dense, x: (NCB·C, d) → y (NRB·R, d)."""
-    t, r, c = vals.shape
+    _, r, c = vals.shape
     d = x.shape[1]
     nrb = tile_ptr.shape[0] - 1
-
-    def vals_map(i, s, ptr, cols):
-        return (_clamped_tile(i, s, ptr, t), 0, 0)
-
-    def x_map(i, s, ptr, cols):
-        return (cols[_clamped_tile(i, s, ptr, t)], 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nrb, max(max_tiles, 1)),
-        in_specs=[
-            pl.BlockSpec((1, r, c), vals_map),
-            pl.BlockSpec((c, d), x_map),
-        ],
-        out_specs=pl.BlockSpec((r, d), lambda i, s, ptr, cols: (i, 0)),
-    )
-    return pl.pallas_call(
-        _row_sweep_body,
-        grid_spec=grid_spec,
+    br, bd = min(SUB_BLOCK, r), feat_block(d)
+    body = functools.partial(_row_sweep_body, r=r, c=c, br=br, bd=bd)
+    return triton_call(
+        body, grid=(nrb, r // br, d // bd),
         out_shape=jax.ShapeDtypeStruct((nrb * r, d), x.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * t * r * c * d,
-            bytes_accessed=(t * r * c + t * c * d + nrb * r * d) * 4,
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
+        name="tiled_spmm_rows",
     )(tile_ptr, tile_cols, vals, x)
-
-
-# ---------------------------------------------------------------------------
-# SpMM col sweep (transpose): grid = (NCB, MAX_TPC), t innermost
-# ---------------------------------------------------------------------------
-
-def _col_sweep_body(ptr_ref, perm_ref, rows_ref, vals_ref, y_ref, out_ref):
-    j = pl.program_id(0)
-    t = pl.program_id(1)
-    n_t = ptr_ref[j + 1] - ptr_ref[j]
-
-    @pl.when(t == 0)
-    def _():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    @pl.when(t < n_t)
-    def _():
-        out_ref[...] += jax.lax.dot_general(
-            vals_ref[0],
-            y_ref[...],
-            dimension_numbers=(((0,), (0,)), ((), ())),   # Sᵀ @ Y
-            preferred_element_type=jnp.float32,
-        ).astype(out_ref.dtype)
-
-
-def spmm_col_sweep_kernel(tile_ptr_c, tile_perm_c, tile_rows, vals, y,
-                          max_tiles: int):
-    """vals: (T, R, C), y: (NRB·R, d) → x' (NCB·C, d) = Σ Sᵀ·Y."""
-    t, r, c = vals.shape
-    d = y.shape[1]
-    ncb = tile_ptr_c.shape[0] - 1
-
-    def vals_map(j, s, ptr, perm, rows):
-        return (perm[_clamped_tile(j, s, ptr, t)], 0, 0)
-
-    def y_map(j, s, ptr, perm, rows):
-        return (rows[perm[_clamped_tile(j, s, ptr, t)]], 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(ncb, max(max_tiles, 1)),
-        in_specs=[
-            pl.BlockSpec((1, r, c), vals_map),
-            pl.BlockSpec((r, d), y_map),
-        ],
-        out_specs=pl.BlockSpec(
-            (c, d), lambda j, s, ptr, perm, rows: (j, 0)
-        ),
-    )
-    return pl.pallas_call(
-        _col_sweep_body,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((ncb * c, d), y.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * t * r * c * d,
-            bytes_accessed=(t * r * c + t * r * d + ncb * c * d) * 4,
-            transcendentals=0,
-        ),
-        interpret=_interpret(),
-    )(tile_ptr_c, tile_perm_c, tile_rows, vals, y)

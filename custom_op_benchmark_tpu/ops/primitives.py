@@ -133,7 +133,7 @@ def node_mul_edge(g: Graph, A: jax.Array, B: jax.Array, *,
         )
     if strategy == "tiled":
         # No tiled NodeMulEdge kernel exists (tile-dense edge features
-        # would need (T, R, C, d) storage — a d× blowup for zero MXU
+        # would need (T, R, C, d) storage — a d× blowup for zero matmul
         # gain); EVERY tiled-family impl ("pallas"/"tiled"/auto) routes
         # to the ELL fast path. The substitution is part of the op's
         # contract (round-3 verdict #8; matrix pinned in

@@ -1,15 +1,19 @@
-"""Public block-sparse (tiled) ops — the Pallas hot path.
+"""Public block-sparse (tiled) ops.
 
 Same semantic contracts as ops/primitives.py (SURVEY.md §2.3), but edge
 data lives **tile-dense**: ``(T, R, C)`` arrays over the nonzero adjacency
 tiles of a :class:`TiledGraph`. Convert with ``tg.scatter_edges`` /
 ``tg.gather_edges`` at the boundary; inside a model the whole attention
-pipeline stays tile-dense (or fully fused, see :func:`tiled_gat_attention`).
+pipeline stays tile-dense (or fully fused, see :func:`tiled_attention`).
 
-All VJPs route through the same three Pallas kernels
-(ops/pallas/tiled_kernels.py), mirroring how the reference reuses its
-forward kernels over the transpose CSR for backward
-(graphop_kernel.cu:355-409, 544-600).
+Four building blocks carry every forward and backward pass, mirroring how
+the reference reuses its forward kernels over the transpose CSR for
+backward (graphop_kernel.cu:355-409, 544-600): a per-tile SDDMM, a row
+sweep and a column sweep SpMM, and the fused attention. Each runs as
+whichever of a Pallas kernel (ops/pallas/, Triton route) and a plain-XLA
+form (a tile gather, a batched ``einsum`` with f32 accumulation, a segment
+sum) was faster on the H100 (PERF.md): kernels for the SDDMM, the row
+sweep and the attention, plain XLA for the column sweep.
 """
 
 from __future__ import annotations
@@ -21,14 +25,14 @@ import jax
 import jax.numpy as jnp
 
 from custom_op_benchmark_tpu.graph.tiled import TiledGraph
-from custom_op_benchmark_tpu.ops.pallas.tiled_kernels import (
+from custom_op_benchmark_tpu.ops.pallas import (
+    feat_block,
+    fused_attention_rows,
     sddmm_tiles_kernel,
-    spmm_col_sweep_kernel,
     spmm_row_sweep_kernel,
 )
-from custom_op_benchmark_tpu.ops.pallas.attention import (
-    fused_attention_rows,
-)
+
+_F32 = jnp.float32
 
 
 def _round_up(x: int, m: int) -> int:
@@ -43,33 +47,95 @@ def _pad_rows(x: jax.Array, rows: int) -> jax.Array:
 
 def _pad_feat(x: jax.Array) -> Tuple[jax.Array, int]:
     d = x.shape[-1]
-    dp = _round_up(max(d, 1), 128)
+    dp = _round_up(max(d, 1), feat_block(d))
     if dp == d:
         return x, d
     return jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, dp - d)]), d
+
+
+def _tiles_of(x: jax.Array, size: int, idx: jax.Array) -> jax.Array:
+    """(nb·size, d) node rows → (T, size, d) blocks ``idx``."""
+    return x.reshape(-1, size, x.shape[-1])[idx]
+
+
+# ---------------------------------------------------------------------------
+# The four building blocks.
+# ---------------------------------------------------------------------------
+
+def _sddmm_tiles(meta, mask, A, B):
+    rows, cols, ptr, perm_c, ptr_c = meta
+    dt = jnp.promote_types(A.dtype, B.dtype)
+    if mask.shape[0] == 0:
+        return jnp.zeros(mask.shape, dt)
+    return sddmm_tiles_kernel(rows, cols, mask, A.astype(dt), B.astype(dt))
+
+
+def _row_sweep(meta, vals, x):
+    """y (NRB·R, d) = Σ over each row block's tiles of vals[t] @ x[J(t)]."""
+    rows, cols, ptr, perm_c, ptr_c = meta
+    t, r, c = vals.shape
+    dt = jnp.promote_types(vals.dtype, x.dtype)
+    if t == 0:
+        return jnp.zeros(((ptr.shape[0] - 1) * r, x.shape[1]), dt)
+    return spmm_row_sweep_kernel(ptr, cols, vals.astype(dt), x.astype(dt))
+
+
+def _col_sweep(meta, vals, y):
+    """x' (NCB·C, d) = Σ over each col block's tiles of vals[t]ᵀ @ y[I(t)]
+    — plain XLA: one batched einsum over the tiles, then a segment sum by
+    column block (measured faster on the H100 than a column-sweep Pallas
+    kernel; PERF.md)."""
+    rows, cols, ptr, perm_c, ptr_c = meta
+    t, r, c = vals.shape
+    ncb = ptr_c.shape[0] - 1
+    dt = jnp.promote_types(vals.dtype, y.dtype)
+    if t == 0:
+        return jnp.zeros((ncb * c, y.shape[1]), dt)
+    part = jnp.einsum("trc,trd->tcd", vals.astype(dt),
+                      _tiles_of(y.astype(dt), r, rows),
+                      preferred_element_type=_F32)
+    return jax.ops.segment_sum(part, cols, ncb).reshape(
+        ncb * c, -1).astype(dt)
+
+
+def _row_softmax(meta, mask, s):
+    """Softmax of (T, R, C) scores over each row's edges across its row
+    block's tiles (segment reductions as scans over the row-sorted tile
+    order)."""
+    rows, cols, ptr, perm_c, ptr_c = meta
+    sm = jnp.where(mask, s, jnp.asarray(-1e30, s.dtype))
+    segm = _sorted_seg_reduce(jnp.max(sm, axis=2), rows, ptr, "max")
+    z = jnp.where(mask, jnp.exp(sm - segm[rows][:, :, None]), 0.0)
+    segs = _sorted_seg_reduce(jnp.sum(z, axis=2), rows, ptr, "sum")
+    return z / jnp.maximum(segs[rows][:, :, None], 1e-30)
+
+
+def _attention_rows(meta, mask, q, k, v, scale):
+    rows, cols, ptr, perm_c, ptr_c = meta
+    if mask.shape[0] == 0:
+        return jnp.zeros(((ptr.shape[0] - 1) * mask.shape[1], v.shape[1]),
+                         v.dtype)
+    return fused_attention_rows(ptr, cols, mask, q, k, v, scale)
 
 
 # ---------------------------------------------------------------------------
 # SDDMM
 # ---------------------------------------------------------------------------
 
-@partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _sddmm_t(sizes, meta, mask, A, B):
-    rows, cols, ptr, perm_c, ptr_c = meta
-    return sddmm_tiles_kernel(rows, cols, mask, A, B)
+@jax.custom_vjp
+def _sddmm_t(meta, mask, A, B):
+    return _sddmm_tiles(meta, mask, A, B)
 
 
-def _sddmm_t_fwd(sizes, meta, mask, A, B):
-    return _sddmm_t(sizes, meta, mask, A, B), (meta, mask, A, B)
+def _sddmm_t_fwd(meta, mask, A, B):
+    return _sddmm_t(meta, mask, A, B), (meta, mask, A, B)
 
 
-def _sddmm_t_bwd(sizes, res, dS):
+def _sddmm_t_bwd(res, dS):
     meta, mask, A, B = res
-    rows, cols, ptr, perm_c, ptr_c = meta
-    mtr, mtc = sizes
     dS = jnp.where(mask, dS, 0.0)
-    dA = spmm_row_sweep_kernel(ptr, cols, dS, B, mtr)
-    dB = spmm_col_sweep_kernel(ptr_c, perm_c, rows, dS, A, mtc)
+    dA = _row_sweep(meta, dS, B).astype(A.dtype)
+    dB = _col_sweep(meta, dS, A).astype(B.dtype)
     return None, None, dA, dB
 
 
@@ -83,36 +149,30 @@ def _meta(tg: TiledGraph):
     )
 
 
-def _sizes(tg: TiledGraph):
-    return (tg.max_tiles_per_row, tg.max_tiles_per_col)
-
-
 def tiled_sddmm(tg: TiledGraph, A: jax.Array, B: jax.Array) -> jax.Array:
     """scores (T, R, C) = mask ⊙ (A[rows] @ B[cols]ᵀ).  A, B: (n, d)."""
     A, _ = _pad_feat(_pad_rows(A, tg.n_rows_padded))
     B, _ = _pad_feat(_pad_rows(B, tg.n_cols_padded))
-    return _sddmm_t(_sizes(tg), _meta(tg), tg.mask, A, B)
+    return _sddmm_t(_meta(tg), tg.mask, A, B)
 
 
 # ---------------------------------------------------------------------------
 # SpMM
 # ---------------------------------------------------------------------------
 
-@partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _spmm_t(sizes, meta, mask, vals, x):
-    rows, cols, ptr, perm_c, ptr_c = meta
-    return spmm_row_sweep_kernel(ptr, cols, vals, x, sizes[0])
+@jax.custom_vjp
+def _spmm_t(meta, mask, vals, x):
+    return _row_sweep(meta, vals, x)
 
 
-def _spmm_t_fwd(sizes, meta, mask, vals, x):
-    return _spmm_t(sizes, meta, mask, vals, x), (meta, mask, vals, x)
+def _spmm_t_fwd(meta, mask, vals, x):
+    return _spmm_t(meta, mask, vals, x), (meta, mask, vals, x)
 
 
-def _spmm_t_bwd(sizes, res, dy):
+def _spmm_t_bwd(res, dy):
     meta, mask, vals, x = res
-    rows, cols, ptr, perm_c, ptr_c = meta
-    dvals = sddmm_tiles_kernel(rows, cols, mask, dy, x)
-    dx = spmm_col_sweep_kernel(ptr_c, perm_c, rows, vals, dy, sizes[1])
+    dvals = _sddmm_tiles(meta, mask, dy, x).astype(vals.dtype)
+    dx = _col_sweep(meta, vals, dy).astype(x.dtype)
     return None, None, dvals, dx
 
 
@@ -126,7 +186,7 @@ def tiled_spmm(tg: TiledGraph, vals: jax.Array, x: jax.Array,
     Returns (out_rows or tg.n_nodes, d).
     """
     xp, d = _pad_feat(_pad_rows(x, tg.n_cols_padded))
-    y = _spmm_t(_sizes(tg), _meta(tg), tg.mask, vals, xp)
+    y = _spmm_t(_meta(tg), tg.mask, vals, xp)
     n = out_rows or tg.n_nodes
     return y[:n, :d]
 
@@ -244,43 +304,31 @@ def tiled_softmax(tg: TiledGraph, scores: jax.Array, *,
 # Fused attention
 # ---------------------------------------------------------------------------
 
-@partial(jax.custom_vjp, nondiff_argnums=(0, 3))
-def _fused_attn(sizes, meta_mask, qkv, scale):
-    (rows, cols, ptr, perm_c, ptr_c), mask = meta_mask
-    q, k, v = qkv
-    return fused_attention_rows(ptr, cols, mask, q, k, v, sizes[0], scale)
+@partial(jax.custom_vjp, nondiff_argnums=(3,))
+def _fused_attn(meta, mask, qkv, scale):
+    return _attention_rows(meta, mask, *qkv, scale)
 
 
-def _fused_attn_fwd(sizes, meta_mask, qkv, scale):
-    return _fused_attn(sizes, meta_mask, qkv, scale), (meta_mask, qkv)
+def _fused_attn_fwd(meta, mask, qkv, scale):
+    return _fused_attn(meta, mask, qkv, scale), (meta, mask, qkv)
 
 
-def _fused_attn_bwd(sizes, scale, res, dy):
-    """Recompute-based backward through the three tiled kernels (the
-    flash-attention bwd shape: scores/α rematerialized, never stored)."""
-    mtr, mtc = sizes
-    (rows, cols, ptr, perm_c, ptr_c), mask = res[0]
-    q, k, v = res[1]
-    s = sddmm_tiles_kernel(rows, cols, mask, q, k) * scale
-    # Row-segment softmax (recompute) — segment reductions as segmented
-    # scans over the row-sorted tile order (scatter-free, verdict #9).
-    neg = jnp.asarray(-1e30, s.dtype)
-    sm = jnp.where(mask, s, neg)
-    lmax = jnp.max(sm, axis=2)
-    segm = _sorted_seg_reduce(lmax, rows, ptr, "max")
-    z = jnp.where(mask, jnp.exp(sm - segm[rows][:, :, None]), 0.0)
-    segs = _sorted_seg_reduce(jnp.sum(z, axis=2), rows, ptr, "sum")
-    alpha = z / jnp.maximum(segs[rows][:, :, None], 1e-30)
-
-    dv = spmm_col_sweep_kernel(ptr_c, perm_c, rows, alpha, dy, mtc)
-    dalpha = sddmm_tiles_kernel(rows, cols, mask, dy, v)
+def _fused_attn_bwd(scale, res, dy):
+    """Recompute-based backward through the three other building blocks
+    (the flash-attention backward shape: scores/α rematerialized, never
+    stored)."""
+    meta, mask, (q, k, v) = res
+    rows, cols, ptr, perm_c, ptr_c = meta
+    alpha = _row_softmax(meta, mask, _sddmm_tiles(meta, mask, q, k) * scale)
+    dv = _col_sweep(meta, alpha, dy).astype(v.dtype)
+    dalpha = _sddmm_tiles(meta, mask, dy, v)
     # softmax VJP per row segment: dS = α ⊙ (dα − Σ_seg α·dα)
-    agg_local = jnp.sum(alpha * dalpha, axis=2)            # (T, R)
-    agg = _sorted_seg_reduce(agg_local, rows, ptr, "sum")
+    agg = _sorted_seg_reduce(jnp.sum(alpha * dalpha, axis=2), rows, ptr,
+                             "sum")
     dS = alpha * (dalpha - agg[rows][:, :, None]) * scale
-    dq = spmm_row_sweep_kernel(ptr, cols, dS, k, mtr)
-    dk = spmm_col_sweep_kernel(ptr_c, perm_c, rows, dS, q, mtc)
-    return None, (dq, dk, dv)
+    dq = _row_sweep(meta, dS, k).astype(q.dtype)
+    dk = _col_sweep(meta, dS, q).astype(k.dtype)
+    return None, None, (dq, dk, dv)
 
 
 _fused_attn.defvjp(_fused_attn_fwd, _fused_attn_bwd)
@@ -313,14 +361,12 @@ def tiled_attention(tg: TiledGraph, q: jax.Array, k: jax.Array,
         qp, d = _pad_feat(_pad_rows(qh, tg.n_rows_padded))
         kp, _ = _pad_feat(_pad_rows(kh, tg.n_cols_padded))
         vp, _ = _pad_feat(_pad_rows(vh, tg.n_cols_padded))
-        out = _fused_attn(
-            _sizes(tg), (_meta(tg), tg.mask), (qp, kp, vp), float(scale)
-        )
+        out = _fused_attn(_meta(tg), tg.mask, (qp, kp, vp), float(scale))
         return out[: tg.n_nodes, :d]
 
     if not multi:
         return one_head(q, k, v)
-    # Pallas vmap wants the batch axis leading: (n, h, d) → (h, n, d).
+    # Heads run as a vmap batch axis, leading: (n, h, d) → (h, n, d).
     out = jax.vmap(one_head)(
         jnp.swapaxes(q, 0, 1), jnp.swapaxes(k, 0, 1), jnp.swapaxes(v, 0, 1)
     )

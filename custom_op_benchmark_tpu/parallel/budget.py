@@ -1,9 +1,10 @@
-"""Static per-shard HBM budget for the halo-partitioned training path.
+"""Static per-shard device-memory budget for the halo-partitioned
+training path.
 
 Round-4 verdict #7: the halo builders are proven at P=64 × 100M edges
 host-side, but nothing computed whether a real papers100M shard
 (features + padded ELL slots + halo buffers + optimizer state) fits one
-chip's HBM at P=16/64. This module is that calculation — pure
+device's memory at P=16/64. This module is that calculation — pure
 arithmetic over :class:`parallel.halo.PlanStats` plus the dtype policy,
 no devices touched (reference analog: the cached-index scaling concern,
 wrapper.py:114-116 — the reference caches its index tensors to disk and
@@ -26,16 +27,32 @@ Model (per shard, bytes) for an L-layer distributed GAT
 (jax.checkpoint over layers); `remat=False` multiplies the per-layer
 terms by L (what plain reverse-mode keeps live).
 
-HBM capacities used for the feasibility verdicts: v5e 16 GB, v5p 95 GB
-(public chip specs), with 10% headroom reserved for XLA scratch.
+Capacity for the feasibility verdict: what the device reports
+(``memory_stats()["bytes_limit"]``, the share JAX may allocate) where a
+device is present, else the H100's 80 GB, with 10% headroom reserved for
+XLA scratch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-HBM_BYTES = {"v5e": 16e9, "v5p": 95e9}
-HEADROOM = 0.90   # fraction of HBM the model state may use
+# NVIDIA H100 Tensor Core GPU data sheet, SXM form factor: 80 GB HBM3.
+H100_BYTES = 80e9
+HEADROOM = 0.90   # fraction of device memory the model state may use
+
+
+def device_capacity_bytes(device=None) -> float:
+    """Bytes JAX may allocate on ``device`` (default: the first device),
+    from its memory stats; the H100's 80 GB when no device reports it."""
+    import jax
+
+    try:
+        device = device or jax.devices()[0]
+        stats = device.memory_stats() or {}
+    except RuntimeError:
+        stats = {}
+    return float(stats.get("bytes_limit", H100_BYTES))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +71,8 @@ class ShardBudget:
         return (self.features + self.layer_live + self.alpha_residual
                 + self.ell_indices + self.params_opt)
 
-    def fits(self, chip: str) -> bool:
-        return self.total <= HBM_BYTES[chip] * HEADROOM
+    def fits(self, capacity_bytes: float) -> bool:
+        return self.total <= capacity_bytes * HEADROOM
 
 
 def shard_budget(st, *, feat_dim: int, heads: int, head_dim: int,
@@ -98,8 +115,9 @@ def shard_budget(st, *, feat_dim: int, heads: int, head_dim: int,
 
 def budget_table(st_by_p: dict, *, feat_dim: int, heads: int,
                  head_dim: int, num_layers: int = 2) -> list:
-    """Rows for every (P, dtype, remat) combination with v5e/v5p
-    verdicts — the RESULTS.md table the round-4 verdict asked for."""
+    """Rows for every (P, dtype, remat) combination with a fits verdict
+    against :func:`device_capacity_bytes`."""
+    cap = device_capacity_bytes()
     rows = []
     for p, st in sorted(st_by_p.items()):
         for dt_name, dt in (("bf16", 2), ("f32", 4)):
@@ -115,6 +133,6 @@ def budget_table(st_by_p: dict, *, feat_dim: int, heads: int,
                     alpha_gb=round(b.alpha_residual / 1e9, 2),
                     ell_idx_gb=round(b.ell_indices / 1e9, 2),
                     total_gb=round(b.total / 1e9, 2),
-                    fits_v5e=b.fits("v5e"), fits_v5p=b.fits("v5p"),
+                    capacity_gb=round(cap / 1e9, 2), fits=b.fits(cap),
                 ))
     return rows

@@ -143,7 +143,7 @@ def halo_graph(g: Graph, mesh: Mesh, axis: str = "edge",
     and keeps the split minimizing total padded wire volume (never
     worse than no hubs). NOTE the floor: the unpadded volume Σ_v req(v)
     cannot be beaten by ANY row-shipping scheme — the split attacks
-    only the padding overhead above it (docs/RESULTS.md, hub section).
+    only the padding overhead above it.
     Reference seed: the skew-handling of part_csr.py:13-27, one level
     up.
     """
@@ -538,8 +538,7 @@ def halo_gat_attention(hg: HaloGraph, mesh: Mesh, q, k, v):
 
 # ---------------------------------------------------------------------------
 # Per-shard ELL local aggregation: scatter-free compute behind the halo
-# exchange (the TPU-fast pairing — segment scatter-adds run at ~1.5 GB/s
-# on this hardware, ELL bucket sweeps are pure gathers; see graph/ell.py)
+# exchange (ELL bucket sweeps are pure gathers; see graph/ell.py)
 # ---------------------------------------------------------------------------
 
 @jax.tree_util.register_dataclass
@@ -1051,8 +1050,8 @@ def _halo_return_packed(hg, recv_pos, hub_pos, d_local, d_halo, width):
     with the ``hub_pos`` gather — zero scatters.
 
     ``d_halo`` may arrive in a narrower WIRE dtype than ``d_local``
-    (bf16 under the measured mixed-precision policy — halves the
-    reverse-exchange bytes, docs/RESULTS.md): the collectives run at
+    (bf16 under the mixed-precision policy — halves the
+    reverse-exchange bytes): the collectives run at
     wire width, the landing accumulates at ``d_local.dtype`` (f32)."""
     p = hg.num_parts
     a2a = hg.num_parts * hg.halo

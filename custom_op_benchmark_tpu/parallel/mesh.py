@@ -39,8 +39,8 @@ def put_sharded(x, sharding) -> jax.Array:
     feeds only its ADDRESSABLE shards through
     ``jax.make_array_from_callback`` (``device_put`` to non-addressable
     devices is invalid there). The halo plan builders route every leaf
-    through this, so the same plan code runs 1-process CPU/TPU meshes and
-    N-host slices unchanged.
+    through this, so the same plan code runs 1-process CPU/GPU meshes and
+    N-host clusters unchanged.
     """
     if jax.process_count() == 1:
         return jax.device_put(x, sharding)

@@ -67,8 +67,8 @@ def dist_gat_forward(dg, mesh: Mesh, params, x, dtype=None):
     the distributed path (params stay f32, logits return f32): q/k/v —
     and therefore the k‖v halo exchange AND the reverse dk‖dv exchange
     — carry bf16, halving both the gathered tiles and the wire bytes
-    (single-chip measurement: GAT(dtype=bf16) bwd 59.3 vs 74 ms,
-    docs/RESULTS.md; round-4 verdict #2 extends it to the halo plan).
+    (round-4 verdict #2 extends the single-device policy to the halo
+    plan).
     """
     from custom_op_benchmark_tpu.parallel.halo import (
         HaloGraph, halo_attention_ell, halo_gat_attention,
@@ -192,15 +192,14 @@ def _pick_order(g, p):
     host-side plans' static numbers (no devices touched).
 
     Objective per candidate, in row-fetch units: max-shard padded slots
-    (per-shard compute — rows gathered from HBM at the measured row-
-    gather rate) + exchange volume rows weighted by that rate over the
-    nominal ICI rate (same row_bytes on both sides; forward and backward
-    each pay both terms the same number of times, so the per-step pass
-    count cancels). Community graphs win on comm (cluster cuts halo
+    (per-shard compute — rows gathered from device memory at the
+    measured row-gather rate) + exchange volume rows weighted by that
+    rate over the nominal link rate (same row_bytes on both sides;
+    forward and backward each pay both terms the same number of times,
+    so the per-step pass count cancels). Community graphs win on comm (cluster cuts halo
     ~5x), power-law graphs win on waste (balanced cuts max-shard slots
     up to 1.5x); the sum picks the right one at the extremes because the
-    losing term is small where the winning term is large
-    (docs/RESULTS.md round-4 projection)."""
+    losing term is small where the winning term is large."""
     import jax
 
     from custom_op_benchmark_tpu.graph import (
@@ -208,15 +207,14 @@ def _pick_order(g, p):
     )
     from custom_op_benchmark_tpu.parallel.halo import plan_stats
     from custom_op_benchmark_tpu.utils.bench_scaling import (
-        MEASURED_ROW_GATHER_BYTES_PER_S, NOMINAL_ICI_BYTES_PER_S,
+        MEASURED_ROW_GATHER_BYTES_PER_S, NOMINAL_LINK_BYTES_PER_S,
     )
 
-    # Comm rows cost ICI time; compute slots cost HBM row-gather time.
-    # Both move the same row_bytes, so the weight is the rate ratio
-    # (~0.55 with the measured 110 GB/s gather and nominal 200 GB/s
-    # ICI — shared constants so the projection model and this picker
-    # cannot drift apart).
-    comm_weight = MEASURED_ROW_GATHER_BYTES_PER_S / NOMINAL_ICI_BYTES_PER_S
+    # Comm rows cost link time; compute slots cost row-gather time from
+    # device memory. Both move the same row_bytes, so the weight is the
+    # rate ratio (shared constants so the projection model and this
+    # picker cannot drift apart).
+    comm_weight = MEASURED_ROW_GATHER_BYTES_PER_S / NOMINAL_LINK_BYTES_PER_S
     best = None
     for ro in (cluster_order(g, p), degree_balanced_order(g, p)):
         g2, _ = reorder_graph(g, ro)
@@ -246,13 +244,13 @@ def fit_edge_partitioned(dataset, mesh: Mesh, *, hidden: int = 64,
     (pre-LN attention + MLP blocks — the distributed
     models/transformer.py analog).
     ``dtype``: compute dtype for the attention path (None = f32;
-    ``jnp.bfloat16`` = the measured mixed-precision policy — params and
+    ``jnp.bfloat16`` = the mixed-precision policy — params and
     optimizer state stay f32, activations/halo wire bytes halve).
     ``order`` (halo plan only): "cluster" (BFS+label-prop locality — cuts
     the halo exchange ~5x on community graphs), "balanced" (serpentine
     degree striping — equalizes the shared-shape packings across shards,
     the right call on locality-free power-law graphs where waste, not
-    comm, is the scaling tax: see docs/RESULTS.md round-4 projection), or
+    comm, is the scaling tax), or
     "auto" (build both host-side plans and keep the one minimizing
     max-shard padded slots + padded wire rows — a few seconds of numpy at
     layout time, like the hub "auto" sweep).
@@ -337,7 +335,7 @@ def fit_edge_partitioned(dataset, mesh: Mesh, *, hidden: int = 64,
 
     # Graph views and data enter the jitted steps as ARGUMENTS — closing
     # over them would embed their index arrays as HLO constants (bloats
-    # executables; overflows remote-compile payloads at ogbn scales).
+    # executables and compile times at ogbn scales).
     def loss_fn(p, dg_, x_, labels_, mask):
         logits = forward(dg_, mesh, with_static(p), x_, dtype=dtype)
         logp = jax.nn.log_softmax(logits)
@@ -364,12 +362,15 @@ def fit_edge_partitioned(dataset, mesh: Mesh, *, hidden: int = 64,
         correct = (jnp.argmax(logits, -1) == labels_).astype(jnp.float32)
         return (correct * mask).sum() / jnp.maximum(mask.sum(), 1.0)
 
-    loss = jnp.inf
+    losses = []
     for _ in range(epochs):
         params, opt_state, loss = train_step(
             params, opt_state, dg, x, labels, train_mask)
+        losses.append(loss)
+    losses = [float(v) for v in losses]
     metrics = dict(
-        loss=float(loss),
+        loss=losses[-1] if losses else float("inf"),
+        losses=losses,
         train_acc=float(accuracy(params, dg, x, labels, train_mask)),
         val_acc=float(accuracy(params, dg, x, labels, val_mask)),
         num_devices=int(np.prod(list(mesh.shape.values()))),

@@ -2,12 +2,12 @@
 
 The reference has no checkpointing or failure story at all; JAX's
 multi-host semantics are fail-fast (a dead host kills the program), so
-the TPU-native recovery model is: detect, checkpoint, restart, resume —
-not in-place healing. This module provides the three pieces:
+the recovery model is: detect, checkpoint, restart, resume — not
+in-place healing. This module provides the three pieces:
 
-- :class:`CheckpointManager` — rolling step-numbered orbax checkpoints
-  with atomic latest-discovery (restart-safe: a killed save never
-  becomes "latest").
+- :class:`CheckpointManager` — rolling step-numbered ``.npz``
+  checkpoints with atomic latest-discovery (restart-safe: a killed save
+  never becomes "latest").
 - :func:`resilient_steps` — a training-step driver that detects
   divergence (non-finite loss) and stalls (step wall-clock watchdog),
   restores the last good checkpoint on divergence, and re-raises after
@@ -27,6 +27,7 @@ import jax
 import numpy as np
 
 from custom_op_benchmark_tpu.train.checkpoint import (
+    checkpoint_complete,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -35,9 +36,9 @@ from custom_op_benchmark_tpu.train.checkpoint import (
 class CheckpointManager:
     """Rolling ``step_N`` checkpoints under one directory.
 
-    Saves are written to ``step_N`` and only count as latest once the
-    directory exists completely (orbax writes atomically via a temp
-    finalize); ``keep`` bounds disk usage.
+    Saves are written to ``step_N`` and only count as latest once its
+    file is complete (written under a temporary name, then renamed);
+    ``keep`` bounds disk usage.
     """
 
     def __init__(self, directory: str, *, keep: int = 3):
@@ -49,7 +50,8 @@ class CheckpointManager:
         out = []
         for name in os.listdir(self.directory):
             m = re.fullmatch(r"step_(\d+)", name)
-            if m and os.path.isdir(os.path.join(self.directory, name)):
+            if m and checkpoint_complete(
+                    os.path.join(self.directory, name)):
                 out.append(int(m.group(1)))
         return sorted(out)
 

@@ -21,7 +21,9 @@ data/synthetic.py — with real loaders pluggable via ``from_numpy_files``):
                         standard JAX multi-host dry-run.
 
 Each run prints one JSON line with the config, dataset size, and final
-metrics. ``--scale`` shrinks node counts for smoke runs.
+metrics. ``--scale`` shrinks node counts for smoke runs; ``--log-every N``
+adds per-epoch loss and accuracy every N epochs to the full-graph
+configs' ``history``.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def _load(path):
     return load_dataset(path)
 
 
-def run_cora_gat(scale, epochs, data=None):
+def run_cora_gat(scale, epochs, data=None, log_every=0):
     import jax
     import jax.numpy as jnp
 
@@ -99,11 +101,11 @@ def run_cora_gat(scale, epochs, data=None):
     model = GAT(hidden_dim=64, out_dim=ds.num_classes, num_layers=2,
                 num_heads=8)
     _, metrics = fit_full_graph(model, ds, epochs=epochs,
-                                learning_rate=5e-3)
+                                learning_rate=5e-3, log_every=log_every)
     return dict(layer_allclose_ok=ok, **metrics)
 
 
-def run_arxiv_gat(scale, epochs, data=None):
+def run_arxiv_gat(scale, epochs, data=None, log_every=0):
     from custom_op_benchmark_tpu.models import GAT
     from custom_op_benchmark_tpu.train import fit_full_graph
 
@@ -112,13 +114,14 @@ def run_arxiv_gat(scale, epochs, data=None):
     model = GAT(hidden_dim=128, out_dim=ds.num_classes, num_layers=3,
                 num_heads=4)
     # Fused degree-bucketed attention (ops/ell.py) — the general-graph
-    # fast path (9.4x composed-segment fwd on power-law graphs).
+    # fast path.
     _, metrics = fit_full_graph(model, ds, epochs=epochs,
-                                learning_rate=2e-3, strategy="ell")
+                                learning_rate=2e-3, strategy="ell",
+                                log_every=log_every)
     return metrics
 
 
-def run_arxiv_transformer(scale, epochs, data=None):
+def run_arxiv_transformer(scale, epochs, data=None, log_every=0):
     """Beyond-BASELINE config: the masked graph transformer (the model
     the reference's clique workload implies — SURVEY §2.3) trained
     full-graph on the arxiv-like dataset via the fused ELL attention."""
@@ -130,11 +133,12 @@ def run_arxiv_transformer(scale, epochs, data=None):
     model = GraphTransformer(dim=128, num_heads=4, num_layers=3,
                              out_dim=ds.num_classes)
     _, metrics = fit_full_graph(model, ds, epochs=epochs,
-                                learning_rate=1e-3, strategy="ell")
+                                learning_rate=1e-3, strategy="ell",
+                                log_every=log_every)
     return metrics
 
 
-def run_reddit_sage(scale, epochs, data=None):
+def run_reddit_sage(scale, epochs, data=None, log_every=0):
     from custom_op_benchmark_tpu.models import GraphSAGE
     from custom_op_benchmark_tpu.train import fit_sampled
 
@@ -167,18 +171,19 @@ def _dist(scale, epochs, want_devices, data=None, arch="gat"):
     return metrics
 
 
-def run_products_gat_dist(scale, epochs, data=None):
+def run_products_gat_dist(scale, epochs, data=None, log_every=0):
     return _dist(scale, epochs, want_devices=8, data=data)
 
 
-def run_products_transformer_dist(scale, epochs, data=None):
+def run_products_transformer_dist(scale, epochs, data=None,
+                                  log_every=0):
     """Beyond-BASELINE: the distributed graph transformer
     (fit_edge_partitioned arch='transformer') on the products config."""
     return _dist(scale, epochs, want_devices=8, data=data,
                  arch="transformer")
 
 
-def run_papers100m_gat_dist(scale, epochs, data=None):
+def run_papers100m_gat_dist(scale, epochs, data=None, log_every=0):
     # Multi-host layout: ≥2 "hosts" = ≥2 mesh parts; on one machine this
     # exercises the identical shard_map program over a fake device mesh.
     return _dist(scale, epochs, want_devices=16, data=data)
@@ -196,14 +201,17 @@ CONFIGS = {
 
 
 def main(argv=None):
-    from custom_op_benchmark_tpu.utils.platform import honor_platform_env
+    from custom_op_benchmark_tpu.utils.cache import enable_compile_cache
 
-    honor_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True, choices=sorted(CONFIGS))
     ap.add_argument("--scale", type=float, default=1.0,
                     help="dataset size multiplier (use <1 for smoke runs)")
     ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=0,
+                    help="record loss/accuracy every N epochs "
+                         "(full-graph configs)")
     ap.add_argument("--data", type=str, default=None,
                     help="path to a real dataset (OGB directory, "
                          "canonical .npz, or Planetoid-style .npz); "
@@ -211,7 +219,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     fn, default_epochs = CONFIGS[args.config]
     metrics = fn(args.scale, args.epochs or default_epochs,
-                 data=args.data)
+                 data=args.data, log_every=args.log_every)
     print(json.dumps({"config": args.config, "scale": args.scale,
                       "data": args.data, **metrics}))
     return 0

@@ -1,14 +1,16 @@
 """Graph diagnostics + execution-strategy advisor.
 
 `describe(g)` reports the structural statistics that determine which
-execution strategy wins on TPU (docs/RESULTS.md "device
-characterization"), and recommends one:
+execution strategy wins, and recommends one:
 
 - dense_block: every component fits a dense (B, L, L) block — batched
-  MXU ops at ~0.9 of HBM roofline;
-- tiled: strong locality after component alignment — 128×128 BSR tiles;
-- ell: everything else (power-law / no locality) — degree-bucketed,
-  scatter-free fused ops.
+  dense matmuls moving exactly the ideal bytes;
+- ell: everything else — degree-bucketed, scatter-free fused ops.
+
+The tiled (BSR) strategy stays callable with ``impl="tiled"`` but is not
+recommended: on the H100 ELL beat it on the locality-rich 1024² grid, its
+home regime, for SpMM, SDDMM and fused attention, forward and gradient
+(PERF.md). ``tile_density_128`` is still reported.
 """
 
 from __future__ import annotations
@@ -57,19 +59,7 @@ def describe(g, max_block: int = 128) -> GraphSummary:
     _, counts = np.unique(labels, return_counts=True)
     max_comp = int(counts.max()) if counts.size else 0
 
-    # Occupied 128² tiles: the BSR sweep's unit of work. The advisor
-    # compares BYTE MODELS, not a density threshold (round-3 verdict
-    # #5 — the old `density ≥ 0.05` rung never won a measured row and
-    # sent the 2-D grid, tiled's actual home turf, to ELL):
-    #   tiled sweep reads ≈ t·128 node rows (one (128, d) x-tile per
-    #     occupied tile);
-    #   ELL sweep gathers ≈ 1.5·e padded slot rows (measured pow-2
-    #     ladder pad ≈ 1.4-1.6×).
-    # Measured validation (docs/records/SUITE_grid_r4.json, real v5e):
-    # 1024² grid (t·128 = 4.2M < 1.5e = 7.9M → tiled) — tiled SpMM
-    # 17.0 ms vs 69.6 ELL / 70.8 segment, fused attention 37.5 vs
-    # 83.7; 2M-edge power-law (hub cols spray tiles, t·128 ≫ 1.5e →
-    # ell) — ELL attention 14.5 ms, tiled never competitive.
+    # Occupied 128² tiles: the BSR sweep's unit of work.
     keys = (src.astype(np.int64) // 128) * ((n // 128) + 1) + dst // 128
     t = len(np.unique(keys)) if e else 0
     dens = e / max(t * 128 * 128, 1)
@@ -78,8 +68,6 @@ def describe(g, max_block: int = 128) -> GraphSummary:
         # A single <=max_block-node component is one dense block — still
         # the dense_block regime (block_graph handles B=1 fine).
         rec = "dense_block"
-    elif t * 128 < 1.5 * e:
-        rec = "tiled (after tile_aligned_order)"
     else:
         rec = "ell"
     return GraphSummary(

@@ -1,6 +1,14 @@
-"""Targeted TPU micro-bench: ELL attention/GAT fwd+bwd on the 2M-edge
-power-law graph (round-1 baselines: attn 14.5/88.8 ms, GAT 25.9/112.4 ms).
+"""Micro-bench on the card: ELL attention/GAT fwd+bwd on the 2M-edge
+power-law graph.
+
+    python scripts/bench_attn_bwd.py
 """
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +23,9 @@ from custom_op_benchmark_tpu.ops import (
 )
 from custom_op_benchmark_tpu.graph import random_graph
 from custom_op_benchmark_tpu.utils.benchlib import bench_fn
+from custom_op_benchmark_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
@@ -48,7 +59,7 @@ def main():
         lambda a, b, z: (ell_gat_attention(de, se, a, b, z) ** 2).sum(),
         argnums=(0, 1, 2)), a_l, a_r, zf)
 
-    # Multihead fused attention (round-1: 33.8 ms at h=4,d=32).
+    # Multihead fused attention.
     qm = zf
     bench("attn_mh_fwd",
           lambda q, k, v: ell_attention(de, se, q, k, v), qm, qm, qm)
@@ -56,8 +67,7 @@ def main():
         lambda q, k, v: (ell_attention(de, se, q, k, v) ** 2).sum(),
         argnums=(0, 1, 2)), qm, qm, qm)
 
-    # Edge-bias attention (round-2 rows: 45.8/42.7 ms fwd raw/packed,
-    # 173.1/124.3 ms bwd) — re-measured after the hop barriers.
+    # Edge-bias attention, raw and packed edge weights.
     be = jnp.asarray(rng.normal(size=(e, d)).astype(np.float32))
     bench("eb_fwd",
           lambda q, k, v, be: ell_edge_bias_attention(de, se, q, k, v,

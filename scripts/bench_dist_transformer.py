@@ -1,25 +1,25 @@
 """Distributed graph-transformer train step on the 1-device mesh.
 
-Round-3 recorded 438 ms for the full train step (3 layers, h=4 d=32,
-adam) at the 2M-edge power-law scale — ≈ 3 × (28.6 fwd + 132.7 bwd)
-halo attention + node-local matmuls. Round 4 rewrote the halo sweeps
-(heads-in-the-sweep + saved-α twin-hop backward, see
-scripts/exp_halo_accounting.py: 8.4 fwd / 72.3 bwd at h=4·d=32), so the
-predicted step is ≈ 3 × 80.7 + matmuls ≈ 250-270 ms. This script
-measures it with the same protocol (bench_fn slope timing, plan built
-exactly as fit_edge_partitioned(plan="halo", arch="transformer") does,
-hub_threshold="auto").
+The full train step (3 layers, h=4 d=32, adam) at the 2M-edge power-law
+scale: halo attention + node-local matmuls, timed with bench_fn slope
+timing, the plan built exactly as fit_edge_partitioned(plan="halo",
+arch="transformer") does, hub_threshold="auto".
 
-Run under timeout on the TPU:
-  timeout 1800 python scripts/bench_dist_transformer.py
+    python scripts/bench_dist_transformer.py
 """
 
-import json
+import os
+import sys
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-import optax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import json  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import optax  # noqa: E402
 
 from custom_op_benchmark_tpu.graph import random_graph
 from custom_op_benchmark_tpu.parallel import make_mesh
@@ -29,7 +29,10 @@ from custom_op_benchmark_tpu.parallel.halo import (
 from custom_op_benchmark_tpu.parallel.train_dist import (
     dist_transformer_forward, init_dist_transformer,
 )
-from custom_op_benchmark_tpu.utils.benchlib import bench_fn
+from custom_op_benchmark_tpu.utils.benchlib import bench_fn  # noqa: E402
+from custom_op_benchmark_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():

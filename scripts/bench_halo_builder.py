@@ -9,14 +9,16 @@ uniform remote tail that exercises the halo machinery.
 
 Run (CPU, 64 fake devices):
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=64 \
-  python -c "from custom_op_benchmark_tpu.utils.platform import \
-    honor_platform_env; honor_platform_env(); import runpy; \
-    runpy.run_path('scripts/bench_halo_builder.py', run_name='__main__')"
+  python scripts/bench_halo_builder.py
 """
 
 import json
 import os
+import sys
 import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 import numpy as np
 

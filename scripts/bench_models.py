@@ -1,20 +1,25 @@
-"""TPU: model-level strategy benchmarks on the reference clique
-workload (512×30 cliques — n=15,360, e=460,800).
+"""Model-level strategy benchmarks on the card, on the reference clique
+workload (512×30 cliques — n=15,360, e=460,800): the GraphTransformer's
+whole-stack block layout vs per-layer scatter/gather, and GAT on the
+segment, fused ELL and dense-block strategies (forward and train step).
 
-Round-3 measurements this reproduces (docs/RESULTS.md):
-- GraphTransformer whole-stack block layout: fwd 13.1→4.0 ms,
-  train step 23.8→12.1 ms vs per-layer scatter/gather.
-- GAT strategies: segment 158/337.7 ms (fwd/step), fused ELL
-  7.9/30.2 ms, dense block (whole-stack + block_gat_attention)
-  1.46/2.93 ms.
+    python scripts/bench_models.py
 """
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-import optax
+import os
+import sys
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import optax  # noqa: E402
+
+from custom_op_benchmark_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from custom_op_benchmark_tpu.graph import block_graph, clique_batch
 from custom_op_benchmark_tpu.models import GAT, GraphTransformer

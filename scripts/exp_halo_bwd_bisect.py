@@ -1,11 +1,9 @@
 """Stage-by-stage bisection of the halo backward's residual P=1 overhead.
 
-Round-4 accounting (exp_halo_accounting.py) closed the halo plan to
-fwd 1.00x / grad 1.31-1.33x of the single-chip fused op, with the
-exchange (0.09 ms) and combine (1.09 ms) terms measured tiny — leaving
-~17 ms of the h1d128 gradient unaccounted (67.45 total vs 50.66 fused).
-This script times the backward COMPUTATION alone (alphas precomputed via
-the forward residual path, fixed cotangent) truncated after each stage:
+At P=1 the halo plan's gradient is slower than the single-device fused
+op although its exchange and combine terms are small. This script times
+the backward COMPUTATION alone (alphas precomputed via the forward
+residual path, fixed cotangent) truncated after each stage:
 
   p1        dq + packed (alpha, dS) materialized (fenced)
   p1_hop    + the twin_pos_t gather (fenced both sides)
@@ -13,22 +11,22 @@ the forward residual path, fixed cotangent) truncated after each stage:
   full      + halo/local landing gathers + reverse a2a + recv_pos sum
 
 Deltas between stages locate the expensive term; p1..p2 can be compared
-against the single-chip per-pass numbers (round 3: pass1 15.0, hop ~15,
-pass2 17.6 ms on the pow-2 ladder).
+against the single-device per-pass times.
 
-Run under timeout on the TPU: timeout 1800 python scripts/exp_halo_bwd_bisect.py
+Run on the card: python scripts/exp_halo_bwd_bisect.py
 """
 
 import json
+import os
+import sys
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-from jax.sharding import PartitionSpec as P
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
-from custom_op_benchmark_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from custom_op_benchmark_tpu.graph import random_graph  # noqa: E402
 from custom_op_benchmark_tpu.parallel import (  # noqa: E402
@@ -38,8 +36,11 @@ from custom_op_benchmark_tpu.parallel.halo import (  # noqa: E402
     _attn_ell_fwd_impl, _exchange_parts, _halo_return_packed,
 )
 from custom_op_benchmark_tpu.utils.benchlib import bench_fn  # noqa: E402
+from custom_op_benchmark_tpu.utils.cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
+enable_compile_cache()
 
 
 def build_bwd_stage(hg, he, mesh, d, stage, stack_kv=True):

@@ -1,4 +1,5 @@
-"""papers100M per-shard HBM feasibility budget (round-4 verdict #7).
+"""papers100M per-shard device-memory feasibility budget (round-4
+verdict #7).
 
 Builds the REAL host-side halo plan (plan_stats: same numpy plan + both
 shared-shape packings a P-mesh would get) on a papers100M-shaped
@@ -7,8 +8,8 @@ parallel/budget.shard_budget at full papers100M scale.
 
 Scale protocol: the full plan (n=111M, e=1.6B) is hours of single-core
 numpy; instead the plan is built at --scale (default 1/10: n=11.1M,
-e=160M — the same builders proven at 100M edges in 143 s,
-HALO_BUILDER_r3_native.json) and the SCALE-FREE ratios extracted:
+e=160M — the same builders scripts/bench_halo_builder.py runs at 100M
+edges) and the SCALE-FREE ratios extracted:
   halo_frac   = (P·M + (P−1)·K) / n_per   (comm rows per owned row)
   slots_ratio = P·pack_slots / e          (padded slots per edge)
   interior    = interior row fraction
@@ -17,19 +18,21 @@ absolute size (verified by printing them at two scales with --verify).
 Full-scale n_per/halo/slots are then reconstructed from the ratios and
 the true n=111,059,956, e=1,615,685,872, f=128.
 
-Run (CPU, host-only — no devices touched by plan_stats):
-  timeout 3600 python scripts/papers100m_budget.py > /tmp/p100m.log 2>&1
+Run (CPU, host-only — no devices touched by plan_stats; the fits
+verdict uses the 80 GB H100 capacity unless a GPU reports its own):
+  JAX_PLATFORMS=cpu python scripts/papers100m_budget.py
 """
 
 import argparse
 import json
+import os
+import sys
 import time
 
 import numpy as np
 
-from custom_op_benchmark_tpu.utils.platform import honor_platform_env
-
-honor_platform_env()
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 PAPERS_N = 111_059_956
 PAPERS_E = 1_615_685_872
@@ -89,8 +92,7 @@ def main():
     ap.add_argument("--verify", action="store_true",
                     help="also build the plan at half the scale and "
                          "print both ratio sets (scale-stability check)")
-    ap.add_argument("--out", default="docs/records/"
-                                     "PAPERS100M_BUDGET_r5.json")
+    ap.add_argument("--out", default="chiprun_out/papers100m_budget.json")
     args = ap.parse_args()
 
     from custom_op_benchmark_tpu.parallel.budget import budget_table
@@ -123,6 +125,7 @@ def main():
         ratios=ratios,
         budget=rows,
     )
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {args.out}")

@@ -1,14 +1,24 @@
-"""Verify user story: public-API ops + grads + dispatch + training (TPU).
+"""Verify user story: public-API ops + grads + dispatch + training.
 
-Step 1 of .claude/skills/verify/SKILL.md, extended with the round-2
-surface: impl= dispatch and packed-weight SpMM.
+Step 1 of .claude/skills/verify/SKILL.md, extended with the impl=
+dispatch and packed-weight SpMM.
+
+    python scripts/verify_story.py
 """
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+import os
+import sys
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compile_cache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from custom_op_benchmark_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():

@@ -1,14 +1,14 @@
 """bf16 on the distributed halo path (round-4 verdict #2).
 
-The repo's measured mixed-precision policy (GAT(dtype=bf16): params
-f32, activations + gathered tiles bf16 — docs/RESULTS.md) extended to
+The repo's mixed-precision policy (GAT(dtype=bf16): params f32,
+activations + gathered tiles bf16) extended to
 the halo plan: with bf16 q/k/v the forward k‖v all_to_all, the
 backward's re-exchange AND the reverse dk‖dv all_to_all all carry bf16
 (parallel/halo.py wire-dtype casts), halving comm bytes. These tests
 gate the numerics on the 8-fake-device CPU mesh at the same tolerance
 tiers as tests/test_dtypes.py (reference dtype breadth:
-graphop_kernel.cu:254 AT_DISPATCH_FLOATING_TYPES, TPU-translated to
-bf16 storage + f32 accumulation).
+graphop_kernel.cu:254 AT_DISPATCH_FLOATING_TYPES, translated to bf16
+storage + f32 accumulation).
 """
 
 import jax

@@ -1,6 +1,6 @@
 """Mixed-precision behavior: the op family must accept bf16 inputs.
 
-TPU idiom: bf16 storage/matmul inputs with f32 accumulation
+Idiom: bf16 storage/matmul inputs with f32 accumulation
 (preferred_element_type) — the reference is fp32/fp64-only
 (AT_DISPATCH_FLOATING_TYPES, graphop_kernel.cu:254).
 """

@@ -300,3 +300,65 @@ def test_fit_full_graph_block_strategy_end_to_end():
     m = GAT(hidden_dim=16, out_dim=c, num_layers=2, num_heads=2)
     _, metrics = fit_full_graph(m, ds, epochs=40, strategy="block")
     assert metrics["val_acc"] > 0.9, metrics
+
+
+@pytest.mark.parametrize("model", [
+    GAT(hidden_dim=8, out_dim=4, num_heads=2, num_layers=3, remat=True),
+    GraphTransformer(dim=8, num_heads=2, num_layers=2, out_dim=4,
+                     remat=True),
+])
+def test_remat_matches_plain_stack(tiny_ds, model):
+    """remat=True (jax.checkpoint per layer) changes memory, not math:
+    same params, same outputs and parameter gradients."""
+    import dataclasses
+
+    ds = tiny_ds
+    x = jnp.asarray(ds.features)
+    plain = dataclasses.replace(model, remat=False)
+    params = model.init(jax.random.PRNGKey(0), ds.graph, x)["params"]
+    params_plain = plain.init(jax.random.PRNGKey(0), ds.graph, x)["params"]
+    jax.tree_util.tree_map(np.testing.assert_array_equal, params,
+                           params_plain)
+
+    def loss(m):
+        return lambda p: (m.apply({"params": p}, ds.graph, x) ** 2).sum()
+
+    g_remat = jax.grad(loss(model))(params)
+    g_plain = jax.grad(loss(plain))(params)
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-5,
+                                                atol=1e-6),
+        g_remat, g_plain)
+
+
+def test_models_hash_by_value_and_init_deterministically(tiny_ds):
+    """The model is a jit-static field of TrainState: equal configs must
+    hash equal, and init must be a pure function of the key."""
+    x = jnp.asarray(tiny_ds.features)
+    a, b = GCN(hidden_dim=8, out_dim=4), GCN(hidden_dim=8, out_dim=4)
+    assert a == b and hash(a) == hash(b)
+    p1 = a.init(jax.random.PRNGKey(3), tiny_ds.graph, x)["params"]
+    p2 = b.init(jax.random.PRNGKey(3), tiny_ds.graph, x)["params"]
+    jax.tree_util.tree_map(np.testing.assert_array_equal, p1, p2)
+    assert set(p1) == {"layer0", "layer1"}
+    assert set(p1["layer0"]) == {"W", "b"}
+
+
+def test_dropout_needs_a_key_and_varies_with_it(tiny_ds):
+    ds = tiny_ds
+    x = jnp.asarray(ds.features)
+    model = GAT(hidden_dim=8, out_dim=4, num_heads=2, dropout_rate=0.5)
+    params = model.init(jax.random.PRNGKey(0), ds.graph, x)["params"]
+    with pytest.raises(ValueError, match="dropout"):
+        model.apply({"params": params}, ds.graph, x, deterministic=False)
+
+    def run(seed):
+        return model.apply({"params": params}, ds.graph, x,
+                           deterministic=False,
+                           rngs={"dropout": jax.random.PRNGKey(seed)})
+
+    np.testing.assert_array_equal(run(1), run(1))
+    assert float(jnp.abs(run(1) - run(2)).max()) > 0
+    y_eval = model.apply({"params": params}, ds.graph, x)
+    np.testing.assert_array_equal(
+        y_eval, model.apply({"params": params}, ds.graph, x))

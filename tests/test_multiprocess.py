@@ -7,7 +7,7 @@ test launches two actual OS processes (4 fake CPU devices each) through
 ``data/distributed.py`` and ``parallel/mesh.put_sharded`` execute for
 real: per-process memmap row loading, halo plan construction via
 ``make_array_from_callback``, a cross-process halo-ELL gradient step,
-and an orbax sharded checkpoint round trip.
+and a sharded ``.npz`` checkpoint round trip.
 """
 
 import os

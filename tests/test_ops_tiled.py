@@ -1,8 +1,8 @@
-"""Tiled (Pallas) op path vs the segment-op oracle.
+"""Tiled op path vs the segment-op oracle.
 
-Pallas kernels run in interpreter mode on CPU (small tiles keep interpret
-runs fast); the same code paths compile natively on TPU (exercised by
-bench.py / the driver).
+Pallas kernels run in the interpreter on CPU (switched on in conftest;
+small tiles keep interpret runs fast); the same code paths compile for the
+GPU (exercised by chip_smoke.py).
 """
 
 import numpy as np

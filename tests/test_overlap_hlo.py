@@ -7,10 +7,10 @@ precondition is checked here on the compiled (scheduled) HLO of the
 8-fake-device CPU mesh: the interior score dots carry NO dependency
 edge to the exchange, and the scheduler places independent compute
 inside the collective's window (between the all-to-all and its first
-consumer). The TPU async scheduler gets exactly the same freedom from
-the same dependency structure (start/done pairs stretch over the
+consumer). An async collective scheduler gets exactly the same freedom
+from the same dependency structure (start/done pairs stretch over the
 independent compute). Full-size artifact: scripts/exp_overlap_evidence.py
-→ docs/records/OVERLAP_EVIDENCE_r5.json.
+→ chiprun_out/overlap_evidence.json.
 """
 
 import sys

@@ -179,8 +179,8 @@ def test_fit_edge_partitioned_transformer():
 def test_pick_order_by_graph_structure():
     """fit_edge_partitioned's order="auto" must pick
     degree_balanced_order on a locality-free power-law graph (waste-
-    bound: striping cuts max-shard padded slots up to 1.5x — measured,
-    docs/RESULTS.md round-4) and cluster_order on a uniform-degree graph
+    bound: striping cuts max-shard padded slots up to 1.5x) and
+    cluster_order on a uniform-degree graph
     with perfect locality (disjoint cliques: striping can't improve
     identical degree profiles but blows every clique across shards)."""
     from custom_op_benchmark_tpu.graph import (

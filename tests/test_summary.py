@@ -21,12 +21,13 @@ def test_describe_powerlaw():
 
 
 def test_describe_grid_recommends_tiled():
-    """The advisor's middle rung, pinned to the measured winner
-    (round-3 verdict #5): on the locality-rich 2-D grid the BSR tiled
-    strategy won every recorded row (SUITE_grid_r4.json — SpMM 17.0 ms
-    vs 69.6 ELL, fused attention 37.5 vs 83.7 on the 1024² grid), so
-    describe must route grids to tiled, not ELL."""
+    """The advisor follows the measured winner on the locality-rich 2-D
+    grid (round-3 verdict #5), tiled's home regime: on the H100, ELL beat
+    the tiled strategy there for SpMM, SDDMM and fused attention
+    (PERF.md), so describe routes grids to ELL and never recommends
+    tiled."""
     from custom_op_benchmark_tpu.graph import grid_graph
 
     s = describe(grid_graph(64, 64))
-    assert s.recommended.startswith("tiled"), s.recommended
+    assert s.recommended == "ell", s.recommended
+    assert s.tile_density_128 > 0
